@@ -38,11 +38,14 @@ Phases, each of which raises on failure:
    contract against a --device cpu --model-regime f64 pair;
 9. B1, the fragment consensus: dc_sort and dc_segments against their
    plain versions on random tables at N = 2^20 (mode max/sum x
-   link_m_overridden) and on the largest real fragment stream of the
-   bench workload, 0 differing entries, both timed; then the bench
-   workload through uvc1 --device cuda with UVC_TPU_DEVICE_PREPARE=1,
-   counters set to 0 just before and read just after: each consensus
-   call launches dc_sort and dc_segments twice, and the VCF body is
+   link_m_overridden), on a wide-key table at N = 2^20 (full-range int32
+   group and pos, negative values: its sort plans take two 64-bit
+   words) and on the largest real fragment stream of the bench workload,
+   0 differing entries, both timed, each radix sort's plan printed; then
+   the bench workload through uvc1 --device cuda with
+   UVC_TPU_DEVICE_PREPARE=1, counters set to 0 just before and read just
+   after: each consensus call launches dc_sort and dc_segments twice,
+   and the VCF body is
    byte-identical to phase 5's gate-off body.
 
 The line before the last is a JSON object of per-kernel results; the last
@@ -408,7 +411,7 @@ def phase_tn_main_path(d):
 def b1_compare(dev, cols, mode, ovr, reps):
     """dc_sort and dc_segments against their plain versions on the card
     from the stage-1 table of ``cols``: (differing entries, kernel ms and
-    plain ms per family, N)."""
+    plain ms per family, N, the kernel's two sort plans)."""
     import torch
     from uvc_tpu_torch.ops import device_consensus as tdc
     table = torch.from_numpy(tdc.stage1_table(*cols)).to(dev)
@@ -422,11 +425,11 @@ def b1_compare(dev, cols, mode, ovr, reps):
         buf1 = table.clone()
         out_u, out_c = torch.zeros((4, N), **kw), torch.zeros((6, N), **kw)
         buf2, counts = torch.empty((9, N), **kw), torch.zeros(2, **kw)
-        sort(buf1, tdc.NKEYS1)
+        plans = [sort(buf1, tdc.NKEYS1)]
         s1 = buf1.clone()
         seg(1, buf1, mode_sum, ovr, out_u, buf2, counts)
         t2 = buf2.clone()
-        sort(buf2, tdc.NKEYS2)
+        plans.append(sort(buf2, tdc.NKEYS2))
         s2 = buf2.clone()
         seg(2, buf2, mode_sum, ovr, out_c, None, counts)
         torch.cuda.synchronize()
@@ -438,11 +441,18 @@ def b1_compare(dev, cols, mode, ovr, reps):
             seg(1, s1, mode_sum, ovr, out_u, buf2, counts),
             seg(2, s2, mode_sum, ovr, out_c, None, counts)), n)
         runs[impl] = ([s1, t2, s2, out_u, out_c, counts],
-                      max(ms_sort - ms_copy, 0.0), ms_seg)
+                      max(ms_sort - ms_copy, 0.0), ms_seg, plans)
     n_diff = sum(int((a != b).sum()) for a, b in zip(runs["kernel"][0],
                                                      runs["plain"][0]))
     return (n_diff, runs["kernel"][1], runs["kernel"][2], runs["plain"][1],
-            runs["plain"][2], N)
+            runs["plain"][2], N, runs["kernel"][3])
+
+
+def print_b1(tag, r):
+    print(f"{tag}: {r[0]} entries differ; dc_sort x2 {r[1]:.4f} ms (plain "
+          f"{r[3]:.4f}), dc_segments x2 {r[2]:.4f} ms (plain {r[4]:.4f})")
+    for stage, plan in zip((1, 2), r[6]):
+        print(f"  dc_sort stage {stage} plan: {plan}")
 
 
 def phase_b1(dev, d, gate_off_body, gate_off_wall):
@@ -459,11 +469,18 @@ def phase_b1(dev, d, gate_off_body, gate_off_wall):
         for ovr in (False, True):
             r = b1_compare(dev, cols, mode, ovr, 5)
             res[("random", mode, ovr)] = r
-            print(f"phase 9 random N={r[5]} {mode} ovr={ovr}: {r[0]} entries "
-                  f"differ; dc_sort x2 {r[1]:.4f} ms (plain {r[3]:.4f}), "
-                  f"dc_segments x2 {r[2]:.4f} ms (plain {r[4]:.4f})")
+            print_b1(f"phase 9 random N={r[5]} {mode} ovr={ovr}", r)
             if r[0]:
                 errs.append(f"random {mode} ovr={ovr}: {r[0]} entries differ")
+    i32 = (-2**31, 2**31)
+    wide = (rng.integers(*i32, n), rng.integers(*i32, n),
+            rng.integers(0, 14, n), rng.integers(-60, 60, n))
+    r = b1_compare(dev, wide, "sum", True, 5)
+    res[("wide", "sum", True)] = r
+    print_b1(f"phase 9 wide keys N={r[5]} sum ovr=True", r)
+    if r[0] or any(len(p.words) < 2 for p in r[6]):
+        errs.append(f"wide keys: {r[0]} entries differ, plans "
+                    f"{[str(p) for p in r[6]]}")
 
     # the gated main path, recording its largest real fragment stream
     fa, bam = os.path.join(d, "bench.fa"), os.path.join(d, "bench.bam")
@@ -509,10 +526,8 @@ def phase_b1(dev, d, gate_off_body, gate_off_wall):
     (rcols, rmode, rovr), = biggest
     r = b1_compare(dev, rcols, rmode, rovr, 20)
     res[("real", rmode, rovr)] = r
-    print(f"phase 9 real stream of {len(rcols[0])} rows (N={r[5]}, {rmode}, "
-          f"ovr={rovr}): {r[0]} entries differ; dc_sort x2 {r[1]:.4f} ms "
-          f"(plain {r[3]:.4f}), dc_segments x2 {r[2]:.4f} ms (plain "
-          f"{r[4]:.4f})")
+    print_b1(f"phase 9 real stream of {len(rcols[0])} rows (N={r[5]}, "
+             f"{rmode}, ovr={rovr})", r)
     if r[0]:
         errs.append(f"real stream: {r[0]} entries differ")
     # one consensus call's cost on that stream, by part (host clock)
@@ -611,8 +626,9 @@ def main():
             "rows": N_ROWS, "main_path": "phase 8"})
     real = next(v for k, v in b1.items() if k[0] == "real")
     rand = b1[("random", "max", True)]
+    wide = b1[("wide", "sum", True)]
     for i, name in ((1, "dc_sort"), (2, "dc_segments")):
-        rows.append({
+        row = {
             "name": name, "route": "cuda",
             "source": f"{csrc}/device_consensus.cu",
             "replaces": "uvc_tpu/ops/device_consensus.py:58",
@@ -620,7 +636,11 @@ def main():
             "max_abs_err": float(max(v[0] for v in b1.values())),
             "ms": real[i], "plain_ms": real[i + 2], "rows": real[5],
             "ms_N2e20": rand[i], "plain_ms_N2e20": rand[i + 2],
-            "main_path": "phase 9", "consensus_calls": b1_calls})
+            "ms_wide_N2e20": wide[i], "plain_ms_wide_N2e20": wide[i + 2],
+            "main_path": "phase 9", "consensus_calls": b1_calls}
+        if name == "dc_sort":
+            row["plans"] = [str(p) for p in real[6]]
+        rows.append(row)
     print(card_line())
     print(json.dumps({"kernels": rows,
                       "main_path": {"reads": stats["reads"],

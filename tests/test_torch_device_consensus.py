@@ -5,10 +5,12 @@
 On the CPU the wrappers run their plain PyTorch versions: random tables
 (mode max/sum x link_m_overridden x 2 seeds), the empty and one-row
 tables, and the real fragment stream of tests/test_device_consensus.py.
-The port's uvc1 with UVC_TPU_DEVICE_PREPARE=1 writes the same VCF body as
-without it.  On a card (marker ``cuda``) dc_sort and dc_segments are held
-to their plain versions.  JAX is imported inside the CPU tests, so the
-card-only tests also run on a machine without it:
+The plain sorts on the JAX program's keys give the tables that an index
+key would.  The port's uvc1 with UVC_TPU_DEVICE_PREPARE=1 writes the same
+VCF body as without it.  On a card (marker ``cuda``) dc_sort and
+dc_segments are held to their plain versions, dc_sort also on the edge
+tables of tests/test_torch_radix_sort.py.  JAX is imported inside the CPU
+tests, so the card-only tests also run on a machine without it:
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_device_consensus.py
 """
 
@@ -16,6 +18,8 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_radix_sort import (SORT_TABLES, plain_stage_tables,
+                                   real_stream, sort_table)
 from uvc_tpu_torch import kernels
 from uvc_tpu_torch.ops import device_consensus as tdc
 
@@ -70,6 +74,21 @@ def test_real_fragment_stream(tmp_path):
             b.bq.astype(np.int64), 3000)
     _check(*cols, "max", True)
     _check(*cols, "sum", False)
+
+
+@pytest.mark.parametrize("stream", ["random0", "random1", "real"])
+def test_jax_num_keys_give_the_same_tables(stream):
+    """Sorting stably on the JAX program's keys (num_keys 4 and 7) gives
+    the same stage-1 and stage-2 tables as sorting with idx, the row's
+    position, as a last key (5 and 8 keys)."""
+    cols = (real_stream() if stream == "real"
+            else _random_table(int(stream[-1]))[:4])
+    for mode_sum, ovr in ((False, True), (True, False)):
+        jax_keys = plain_stage_tables(cols, mode_sum, ovr, 4, 7)
+        total = plain_stage_tables(cols, mode_sum, ovr, 5, 8)
+        assert (tdc.NKEYS1, tdc.NKEYS2) == (4, 7)
+        for a, b in zip(jax_keys, total):
+            assert torch.equal(a, b)
 
 
 def test_uvc1_device_prepare_gate(tmp_path, monkeypatch):
@@ -172,3 +191,12 @@ def test_kernels_match_plain_on_card(cuda, mode, ovr):
     for a, b in zip(outs["cpu"], outs[str(cuda)]):
         assert torch.equal(a, b)
     assert kernels.LAUNCHES["dc_sort"] == kernels.LAUNCHES["dc_segments"] == 2
+    # the host radix test's edge tables (multi-word keys, extremes, all
+    # equal, duplicates, N = 1024, the real stream's two stages)
+    for name in SORT_TABLES:
+        table, nkeys = sort_table(name)
+        want = torch.from_numpy(table.copy())
+        tdc.dc_sort_plain(want, nkeys)
+        got = torch.from_numpy(table).to(cuda)
+        plan = tdc.dc_sort(got, nkeys)
+        assert torch.equal(got.cpu(), want), (name, str(plan))

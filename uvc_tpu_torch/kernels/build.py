@@ -94,7 +94,9 @@ def load():
                                ctypes.c_void_p]
         vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         for fn, args in (
-                (lib.uvc_dc_sort, [vp, ll, ci, ci, vp]),
+                (lib.uvc_dc_sort_ranges, [vp, ll, ci, vp, vp]),
+                (lib.uvc_dc_sort,
+                 [vp, ll, ci, ctypes.POINTER(ci), ci, vp, vp]),
                 (lib.uvc_dc_segments_unique,
                  [vp, ll, ci, ci, vp, vp, vp, vp, vp]),
                 (lib.uvc_dc_segments_groups, [vp, ll, ci, vp, vp, vp, vp])):
@@ -102,6 +104,8 @@ def load():
             fn.argtypes = args
         lib.uvc_error_string.restype = ctypes.c_char_p
         lib.uvc_error_string.argtypes = [ctypes.c_int]
+        lib.uvc_dc_sort_scratch.restype = ll
+        lib.uvc_dc_sort_scratch.argtypes = [ll, ci]
         lib.uvc_layout_size.restype = ctypes.c_longlong
         lib.uvc_layout_size.argtypes = []
         _LIB = lib

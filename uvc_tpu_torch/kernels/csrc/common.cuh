@@ -1,5 +1,6 @@
 // Shared definitions of the packed quality model's kernels
-// (capitals_vq.cu, dpv.cu, qual_tail.cu).
+// (capitals_vq.cu, dpv.cu, qual_tail.cu); device_consensus.cu takes its
+// HD macro for the radix sort's helpers.
 //
 // Wire: one thread handles one row r of the packed request.  Its input
 // planes are pi[r * ci + in_off[I_x] + s] for symbol s (0..13), its int

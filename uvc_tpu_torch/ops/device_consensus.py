@@ -14,19 +14,21 @@ and the per-(group, pos, symbol type) consensus rows:
 
 The work runs on int32 tables of a power-of-two bucket of rows (the JAX
 program's shapes) through two kernel families of csrc/device_consensus.cu:
-``dc_sort`` (a lexicographic sort of the table's rows) and ``dc_segments``
-(the segment reduce of the sorted unique rows, stage 1, and the consensus
-of the sorted groups, stage 2).  One call launches each family twice:
-sort, segments, sort, segments.  On a CPU tensor each wrapper runs its
-plain PyTorch version (stable ``torch.sort`` passes from the last key to
-the first; ``scatter_reduce`` for the segment max, sum and min), on a
-CUDA tensor its kernel, or raises.
+``dc_sort`` (a stable lexicographic sort of the table's rows, an LSD radix
+sort over the key columns packed into 64-bit words by ``sort_plan``) and
+``dc_segments`` (the segment reduce of the sorted unique rows, stage 1, and
+the consensus of the sorted groups, stage 2).  One call launches each
+family twice: sort, segments, sort, segments.  On a CPU tensor each
+wrapper runs its plain PyTorch version (stable ``torch.sort`` passes from
+the last key to the first; ``scatter_reduce`` for the segment max, sum and
+min), on a CUDA tensor its kernel, or raises.
 
 ``DEVICE`` says where the tables go; the CLI sets it from ``--device``.
 The CLI's worker threads call in concurrently; a lock serializes the
 device work.
 """
 
+import ctypes
 import threading
 
 import numpy as np
@@ -44,11 +46,12 @@ DEVICE = torch.device("cpu")
 _LOCK = threading.Lock()
 
 # the tables' columns: the stage-1 sort input and the stage-2 sort input
-# (built by dc_segments stage 1); idx, each row's position before the
-# sort, is the last key, so both sorts are total orders
+# (built by dc_segments stage 1); the sorts are stable on the JAX
+# program's keys (num_keys 4 and 7), and idx, each row's position before
+# the sort, rides along
 COLS1 = ("inval", "g", "p", "s", "idx", "v")
 COLS2 = ("c_inv", "g", "p", "st", "cls", "negv", "s", "idx", "v")
-NKEYS1, NKEYS2 = 5, 8
+NKEYS1, NKEYS2 = 4, 7
 SEG_BLOCK = 1024  # rows per block of the segment kernels
 
 
@@ -83,22 +86,83 @@ def dc_sort_plain(buf, nkeys):
     buf.copy_(buf[:, perm])
 
 
+class SortPlan:
+    """The radix sort's plan: ``widths`` (bits of each key), ``words``
+    (least significant first, each a list of (key, shift, min)), ``bits``
+    and ``digits`` (8-bit digit passes) of each word, and ``ints``, the
+    array the kernels and the host build take."""
+
+    def __init__(self, widths, words):
+        self.widths, self.words = widths, words
+        self.bits = [sh + widths[k] for k, sh, _ in (w[-1] for w in words)]
+        self.digits = [-(-b // 8) for b in self.bits]
+        self.ints = [len(words)]
+        for w, nd in zip(words, self.digits):
+            self.ints += [len(w), nd]
+            for key in w:
+                self.ints += list(key)
+
+    def __str__(self):
+        return (f"key widths {self.widths}: {len(self.words)} word(s) of "
+                f"{self.bits} bits, {sum(self.digits)} digit passes")
+
+
+def sort_plan(lo, hi):
+    """The plan for key columns with minima ``lo`` and maxima ``hi`` (key
+    0 first): key k takes bitlen(hi - lo) bits (in Python ints, so any
+    int32 range works); from the last key to the first, keys fill 64-bit
+    words without being split; a key of width 0 takes no bits."""
+    widths = [int(h - l).bit_length() for l, h in zip(lo, hi)]
+    words, cur, bits = [], [], 0
+    for k in range(len(widths) - 1, -1, -1):
+        if widths[k] == 0:
+            continue
+        if bits + widths[k] > 64:
+            words.append(cur)
+            cur, bits = [], 0
+        cur.append((k, bits, int(lo[k])))
+        bits += widths[k]
+    if cur:
+        words.append(cur)
+    return SortPlan(widths, words)
+
+
+def decode_ranges(rng):
+    """(minima, maxima) of the key columns from the ranges kernel's
+    2 * nkeys uint32s (as int32 or uint32 numbers): the min of each key's
+    order-preserving unsigned image, then the min of its complement."""
+    u = np.asarray(rng, dtype=np.int64) & 0xFFFFFFFF
+    return ([int(x) - 2**31 for x in u[0::2]],
+            [0xFFFFFFFF - int(x) - 2**31 for x in u[1::2]])
+
+
 def dc_sort(buf, nkeys):
     """Sort the int32 table ``buf`` [A, N] in place by its first ``nkeys``
-    rows: the kernel on a CUDA tensor, the plain version on a CPU one."""
+    rows, stably: the kernel on a CUDA tensor (returns its SortPlan), the
+    plain version on a CPU one."""
     N = _check_table("dc_sort", buf, range(1, len(COLS2) + 1))
-    if not 0 < nkeys <= buf.shape[0]:
-        raise ValueError(f"dc_sort: {nkeys} keys of a {buf.shape[0]}-column "
-                         "table")
+    A = buf.shape[0]
+    if not 0 < nkeys <= A:
+        raise ValueError(f"dc_sort: {nkeys} keys of a {A}-column table")
     if buf.device.type == "cpu":
         return dc_sort_plain(buf, nkeys)
     from ..kernels import build
     lib = build.load()
-    with torch.cuda.device(buf.device):
-        rc = lib.uvc_dc_sort(buf.data_ptr(), N, buf.shape[0], nkeys,
-                             torch.cuda.current_stream(buf.device).cuda_stream)
+    dev = buf.device
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rng = torch.empty(2 * nkeys, dtype=torch.int32, device=dev)
+        kernels.check(lib, "dc_sort", lib.uvc_dc_sort_ranges(
+            buf.data_ptr(), N, nkeys, rng.data_ptr(), stream))
+        plan = sort_plan(*decode_ranges(rng.cpu().numpy()))
+        scratch = torch.empty(lib.uvc_dc_sort_scratch(N, A),
+                              dtype=torch.uint8, device=dev)
+        ints = (ctypes.c_int * len(plan.ints))(*plan.ints)
+        rc = lib.uvc_dc_sort(buf.data_ptr(), N, A, ints, len(plan.ints),
+                             scratch.data_ptr(), stream)
     kernels.check(lib, "dc_sort", rc)
     kernels.count("dc_sort")
+    return plan
 
 
 # ---- dc_segments --------------------------------------------------------------
