@@ -78,14 +78,27 @@ Phases, each of which raises on failure:
    a local port), each at -t = half the cores, started before phase 12
    and run beside its host-bound dry run; the merged body must be
    byte-identical to phase 5's, and each process must have launched K1
-   once for each of its requests.
+   once for each of its requests;
+15. the f32-parity workload (tools/tpu_record_diff.py's: 12 kbp at depth
+   120, SNVs down to AF 0.06) through utils/record_diff.py: three uvc1
+   processes at -t 1 side by side, cpu f64, cuda f32 and cuda f64,
+   started with phase 14's and run beside phase 12's dry run; the
+   cuda f32 body within the f32 contract of the cpu f64 body (at least 4
+   records), the cuda f64 body byte-identical to it, and each card leg,
+   a fresh process whose launch counters start at 0, must have launched
+   K1-K3 once for each of its model requests (its summary line).
+
+Phase 9 also times the two sorts' library route (``library_sort``: a
+stable torch.sort of each packed 64-bit key word, then one gather), held
+to dc_sort_plain on the same tables, as dc_sort's ``library_ms``.
 
 The line before the last is a JSON object of per-kernel results (each
 model kernel's first numbers at the main path's shape, f32 and 128 rows)
-and of phases 11-14; the last is {"ok": true, "device": {...}}.  Nothing of JAX or of the JAX
+and of phases 11-15; the last is {"ok": true, "device": {...}}.  Nothing of JAX or of the JAX
 package uvc_tpu is imported: the script blocks both.
 """
 
+from concurrent.futures import ThreadPoolExecutor
 import json
 import math
 import os
@@ -186,6 +199,9 @@ def device_ms(fn, reps, kernel, tries=3):
             torch.cuda.synchronize()
         evs = [e for e in prof.key_averages() if f"{kernel}_kernel" in e.key]
         n = sum(e.count for e in evs)
+        if n < reps:
+            print(f"  device time of {kernel}: a trace window kept {n} of "
+                  f"{reps} launches")
         if n >= reps * 0.9:
             return sum(e.device_time_total for e in evs) / n / 1e3
     print(f"  device time of {kernel} not measured: the trace kept {n} of "
@@ -543,10 +559,39 @@ def phase_tn_main_path(d):
     return launches, stats, wall, walls, reads
 
 
+def library_sort(buf, nkeys):
+    """dc_sort's library route, a yardstick that nothing in the port
+    calls: sort the int32 table ``buf`` [A, N] in place by its first
+    ``nkeys`` rows, stably, with the key columns packed into the 64-bit
+    words that ``sort_plan`` lays out (from the key ranges, read back
+    once, as dc_sort reads them), one stable ``torch.sort`` a word from
+    the least significant, then one gather of the table's columns.
+    torch.sort has no unsigned 64-bit sort, so each word's top bit is
+    flipped first: that maps unsigned order onto int64 order."""
+    import torch
+    from uvc_tpu_torch.ops import device_consensus as tdc
+    lo, hi = torch.stack(torch.aminmax(buf[:nkeys], dim=1)).cpu().tolist()
+    perm = None
+    for word in tdc.sort_plan(lo, hi).words:
+        w = torch.zeros(buf.shape[1], dtype=torch.int64, device=buf.device)
+        for k, shift, mn in word:
+            w |= (buf[k].long() - mn) << shift
+        w ^= torch.iinfo(torch.int64).min
+        if perm is None:
+            perm = torch.sort(w, stable=True).indices
+        else:
+            perm = perm[torch.sort(w[perm], stable=True).indices]
+    if perm is not None:
+        buf.copy_(buf[:, perm])
+
+
 def b1_compare(dev, cols, mode, ovr, reps):
     """dc_sort and dc_segments against their plain versions on the card
-    from the stage-1 table of ``cols``: (differing entries, kernel ms and
-    plain ms per family, N, the kernel's two sort plans)."""
+    from the stage-1 table of ``cols``, and the two sorts' library route
+    (``library_sort``) against dc_sort_plain: (differing entries, kernel
+    ms and plain ms per family, N, the kernel's two sort plans, (n_uniq,
+    n_grp), the library route's differing entries and ms).  The sorts'
+    times are those of both sorts less the table copies before them."""
     import torch
     from uvc_tpu_torch.ops import device_consensus as tdc
     table = torch.from_numpy(tdc.stage1_table(*cols)).to(dev)
@@ -554,12 +599,13 @@ def b1_compare(dev, cols, mode, ovr, reps):
     kw = dict(dtype=torch.int32, device=dev)
     mode_sum = mode == "sum"
     runs = {}
+    buf1, buf2 = table.clone(), torch.empty((9, N), **kw)
     for impl in ("kernel", "plain"):
         sort = tdc.dc_sort if impl == "kernel" else tdc.dc_sort_plain
         seg = tdc.dc_segments if impl == "kernel" else tdc.dc_segments_plain
-        buf1 = table.clone()
+        buf1.copy_(table)
         out_u, out_c = torch.zeros((4, N), **kw), torch.zeros((6, N), **kw)
-        buf2, counts = torch.empty((9, N), **kw), torch.zeros(2, **kw)
+        counts = torch.zeros(2, **kw)
         plans = [sort(buf1, tdc.NKEYS1)]
         s1 = buf1.clone()
         seg(1, buf1, mode_sum, ovr, out_u, buf2, counts)
@@ -576,12 +622,23 @@ def b1_compare(dev, cols, mode, ovr, reps):
             seg(1, s1, mode_sum, ovr, out_u, buf2, counts),
             seg(2, s2, mode_sum, ovr, out_c, None, counts)), n)
         runs[impl] = ([s1, t2, s2, out_u, out_c, counts],
-                      max(ms_sort - ms_copy, 0.0), ms_seg, plans)
+                      max(ms_sort - ms_copy, 0.0), ms_seg, plans, ms_copy)
     n_diff = sum(int((a != b).sum()) for a, b in zip(runs["kernel"][0],
                                                      runs["plain"][0]))
     n_uniq, n_grp = (int(x) for x in runs["kernel"][0][5].cpu())
+    # the library route, from the plain run's tables, timed as the kernel
+    s1, t2, s2 = runs["plain"][0][:3]
+    buf1.copy_(table)
+    library_sort(buf1, tdc.NKEYS1)
+    buf2.copy_(t2)
+    library_sort(buf2, tdc.NKEYS2)
+    lib_diff = int((buf1 != s1).sum()) + int((buf2 != s2).sum())
+    ms_lib = cuda_ms(lambda: (
+        buf1.copy_(table), library_sort(buf1, tdc.NKEYS1),
+        buf2.copy_(t2), library_sort(buf2, tdc.NKEYS2)), reps)
     return (n_diff, runs["kernel"][1], runs["kernel"][2], runs["plain"][1],
-            runs["plain"][2], N, runs["kernel"][3], (n_uniq, n_grp))
+            runs["plain"][2], N, runs["kernel"][3], (n_uniq, n_grp),
+            lib_diff, max(ms_lib - runs["kernel"][4], 0.0))
 
 
 def b1_bounds(r):
@@ -601,7 +658,9 @@ def b1_bounds(r):
 
 def print_b1(tag, r):
     print(f"{tag}: {r[0]} entries differ; dc_sort x2 {r[1]:.4f} ms (plain "
-          f"{r[3]:.4f}), dc_segments x2 {r[2]:.4f} ms (plain {r[4]:.4f})")
+          f"{r[3]:.4f}, library route {r[9]:.4f} with {r[8]} entries "
+          f"differing from plain), dc_segments x2 {r[2]:.4f} ms (plain "
+          f"{r[4]:.4f})")
     for stage, plan in zip((1, 2), r[6]):
         print(f"  dc_sort stage {stage} plan: {plan}")
 
@@ -621,17 +680,18 @@ def phase_b1(dev, d, gate_off_body, gate_off_wall):
             r = b1_compare(dev, cols, mode, ovr, 5)
             res[("random", mode, ovr)] = r
             print_b1(f"phase 9 random N={r[5]} {mode} ovr={ovr}", r)
-            if r[0]:
-                errs.append(f"random {mode} ovr={ovr}: {r[0]} entries differ")
+            if r[0] or r[8]:
+                errs.append(f"random {mode} ovr={ovr}: {r[0]} entries "
+                            f"differ, library route {r[8]}")
     i32 = (-2**31, 2**31)
     wide = (rng.integers(*i32, n), rng.integers(*i32, n),
             rng.integers(0, 14, n), rng.integers(-60, 60, n))
     r = b1_compare(dev, wide, "sum", True, 5)
     res[("wide", "sum", True)] = r
     print_b1(f"phase 9 wide keys N={r[5]} sum ovr=True", r)
-    if r[0] or any(len(p.words) < 2 for p in r[6]):
-        errs.append(f"wide keys: {r[0]} entries differ, plans "
-                    f"{[str(p) for p in r[6]]}")
+    if r[0] or r[8] or any(len(p.words) < 2 for p in r[6]):
+        errs.append(f"wide keys: {r[0]} entries differ, library route "
+                    f"{r[8]}, plans {[str(p) for p in r[6]]}")
 
     # the gated main path, recording its largest real fragment stream
     fa, bam = os.path.join(d, "bench.fa"), os.path.join(d, "bench.bam")
@@ -679,8 +739,9 @@ def phase_b1(dev, d, gate_off_body, gate_off_wall):
     res[("real", rmode, rovr)] = r
     print_b1(f"phase 9 real stream of {len(rcols[0])} rows (N={r[5]}, "
              f"{rmode}, ovr={rovr})", r)
-    if r[0]:
-        errs.append(f"real stream: {r[0]} entries differ")
+    if r[0] or r[8]:
+        errs.append(f"real stream: {r[0]} entries differ, library route "
+                    f"{r[8]}")
     # one consensus call's cost on that stream, by part (host clock)
     t0 = time.perf_counter()
     for _ in range(3):
@@ -859,17 +920,23 @@ def phase_dryrun(dev):
 
 
 def trace_idle_share(path, label):
-    """(kernel-union ms, traced wall ms, kernel records) of a Chrome trace
-    exported by torch.profiler: the union of the CUDA kernels' intervals
-    inside the ``label`` span, and that span's length."""
+    """(kernel-union ms, traced wall ms, kernel records as (name, ms from
+    the span's start) in time order) of a Chrome trace exported by
+    torch.profiler: the CUDA kernels that start inside the ``label`` span,
+    the union of their intervals, and that span's length; records before
+    the span have negative times and count in no union."""
     with open(path) as fh:
         events = json.load(fh)["traceEvents"]
     span = max((e for e in events if e.get("name") == label
                 and e.get("ph") == "X" and e.get("cat") == "user_annotation"),
                key=lambda e: e["dur"], default=None)
-    ivs = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
-                 if e.get("cat") == "kernel" and e.get("ph") == "X")
-    names = [e["name"] for e in events if e.get("cat") == "kernel"]
+    if span is None:
+        return 0.0, None, []
+    kern = sorted((e for e in events if e.get("cat") == "kernel"
+                   and e.get("ph") == "X"), key=lambda e: e["ts"])
+    names = [(e["name"], (e["ts"] - span["ts"]) / 1e3) for e in kern]
+    ivs = [(e["ts"], e["ts"] + e["dur"]) for e in kern
+           if span["ts"] <= e["ts"] <= span["ts"] + span["dur"]]
     busy, end = 0.0, None
     for a, b in ivs:
         if end is None or a > end:
@@ -878,48 +945,64 @@ def trace_idle_share(path, label):
         elif b > end:
             busy += b - end
             end = b
-    wall = span["dur"] if span else None
-    return busy / 1e3, (wall / 1e3 if wall else None), names
+    return busy / 1e3, span["dur"] / 1e3, names
 
 
 def phase_idle(d, tries=3):
     """Phase 13: the device's idle share on the main path, from an
-    untimed run of phase 5's command under maybe_trace.  A trace that
-    lost kernel records (fewer than the counters counted) is taken again,
-    up to ``tries`` runs; after that the share is not measured (None)."""
+    untimed run of phase 5's command under maybe_trace, in a span of its
+    own (``main_path``).  Before that span, inside the same trace, K1-K3
+    run once on a 128-row request: the trace has lost the first two of
+    the kernel library's records, and the warm-up shows whether they are
+    the first of the trace or the main path's.  A trace that lost main
+    path records (fewer than the counters counted) is taken again, up to
+    ``tries`` runs; after that the share is not measured (None)."""
     import torch
-    from uvc_tpu_torch import kernels
-    from uvc_tpu_torch.utils import profiling
+    from torch.profiler import record_function
+    from uvc_tpu_torch import calling, kernels
+    from uvc_tpu_torch.utils import device_bench, profiling
     fa, bam = os.path.join(d, "bench.fa"), os.path.join(d, "bench.bam")
     nt = len(os.sched_getaffinity(0))
     label = "main_path"
+    pi, ispec, cfg = device_bench.bench_request(MAIN_ROWS, "f32")
+    model = calling.model_backend(torch.device("cuda", 0), "f32").model(cfg)
+    pi = torch.from_numpy(pi).cuda()
     for attempt in range(1, tries + 1):
         with tempfile.TemporaryDirectory(prefix="uvc_idle_trace_") as td:
             os.environ[profiling.ENV_VAR] = td
-            kernels.reset_launches()
             try:
-                with profiling.maybe_trace(label):
-                    # a small kernel first: a trace has been seen to lose
-                    # the first kernel records after it starts
-                    torch.ones(1, device="cuda").add_(1)
+                with profiling.maybe_trace("phase_13"):
+                    model(pi, ispec)
                     torch.cuda.synchronize()
-                    run_cli(["-f", fa, "-t", str(nt), bam, "-o",
-                             os.path.join(d, "bench.traced.vcf.gz"),
-                             "--device", "cuda", "--model-regime", "f32"])
+                    kernels.reset_launches()
+                    with record_function(label):
+                        run_cli(["-f", fa, "-t", str(nt), bam, "-o",
+                                 os.path.join(d, "bench.traced.vcf.gz"),
+                                 "--device", "cuda", "--model-regime",
+                                 "f32"])
             finally:
                 del os.environ[profiling.ENV_VAR]
             launched = sum(kernels.LAUNCHES[k] for k in MODEL_KERNELS)
             path, = [os.path.join(td, f) for f in os.listdir(td)]
             busy, wall, names = trace_idle_share(path, label)
-        kept = sum(any(f"{k}_kernel" in n for k in MODEL_KERNELS)
-                   for n in names)
+        recs = [(next(k for k in MODEL_KERNELS if f"{k}_kernel" in n), t)
+                for n, t in names
+                if any(f"{k}_kernel" in n for k in MODEL_KERNELS)]
+        warm = sum(t < 0 for _, t in recs)
+        kept = len(recs) - warm
         res = dict(kernel_records=kept, launches=launched,
-                   other_kernel_records=len(names) - kept, busy_ms=busy,
-                   wall_ms=wall, attempts=attempt, idle_share=None)
+                   warmup_records=warm, warmup_launches=len(MODEL_KERNELS),
+                   other_kernel_records=len(names) - len(recs),
+                   busy_ms=busy, wall_ms=wall, attempts=attempt,
+                   idle_share=None)
+        # the model records the trace kept, in time order (ms from the
+        # main path's start; the warm-up's are negative)
+        print(f"phase 13 run {attempt}: the trace kept {warm} of "
+              f"{len(MODEL_KERNELS)} warm-up and {kept} of {launched} main "
+              f"path model kernel records (wall {wall} ms): "
+              + " ".join(f"{k}@{t:.3f}" for k, t in recs))
         if kept >= launched and wall is not None:
             break
-        print(f"phase 13 run {attempt}: the trace kept {kept} of {launched} "
-              f"model kernel records (wall {wall} ms)")
     else:
         print(f"phase 13: idle share not measured: every one of {tries} "
               "traces lost kernel records")
@@ -1001,6 +1084,40 @@ def finish_two_process(started, gate_off_body):
     return dict(threads_each=nt, processes=shares)
 
 
+def phase_record_diff(d):
+    """Phase 15: utils/record_diff.py on the card.  Each leg is a fresh
+    uvc1 process, so its launch counters start at 0 and its summary line
+    reads them at its end: every card leg must have launched K1-K3 once a
+    model request, and nothing else."""
+    from uvc_tpu_torch.utils import record_diff
+    res = record_diff.run("cuda", d)
+    bodies = res["bodies"]
+    n_lines = sum(a != b for a, b in zip(bodies["device"], bodies["golden"]))
+    walls = " ".join(f"{k} {v:.3f} s" for k, v in res["walls"].items())
+    print(f"phase 15 record diff: {res['records']} records; the cuda f32 body "
+          f"differs from the cpu f64 body on {n_lines} lines, "
+          f"{len(res['divergences'])} divergences; the cuda f64 body "
+          f"byte-identical: {not res['f64_divergences']}; walls {walls} "
+          f"(side by side, beside phases 12 and 14); requests {res['requests']}, devices "
+          f"{res['devices']}, launches {res['launches']}")
+    errs = list(res["divergences"]) + [f"cuda f64: {e}"
+                                       for e in res["f64_divergences"]]
+    if res["records"] < 4:
+        errs.append(f"{res['records']} records")
+    for leg in ("device", "device_f64"):
+        n, got = res["requests"][leg], res["launches"][leg]
+        if (n < 1 or not res["devices"][leg].startswith("cuda")
+                or any(got[k] != (n if k in MODEL_KERNELS else 0)
+                       for k in got)):
+            errs.append(f"{leg} leg on {res['devices'][leg]}: launches {got} "
+                        f"over {n} requests")
+    if errs:
+        raise AssertionError("record diff:\n" + "\n".join(errs[:40]))
+    return dict(records=res["records"], lines_f32_vs_f64=n_lines,
+                divergences=0, f64_identical=True, walls_s=res["walls"],
+                requests=res["requests"], launches=res["launches"])
+
+
 def kernel_rows(kres, rres, launches, tn_launches, b1, b1_launches,
                 b1_calls, turns):
     """The per-kernel results line: one row per kernel (and per mode of
@@ -1073,13 +1190,16 @@ def kernel_rows(kres, rres, launches, tn_launches, b1, b1_launches,
             "max_abs_err": float(max(v[0] for v in b1.values())),
             "ms": real[i], "plain_ms": real[i + 2],
             "bound_ms": real_bound[name][0], "bound_by": real_bound[name][1],
-            "library_ms": None, "rows": real[5],
-            "bound_ms_N2e20": rand_bound[name][0],
+            "library_ms": real[9] if name == "dc_sort" else None,
+            "rows": real[5], "bound_ms_N2e20": rand_bound[name][0],
             "ms_N2e20": rand[i], "plain_ms_N2e20": rand[i + 2],
             "ms_wide_N2e20": wide[i], "plain_ms_wide_N2e20": wide[i + 2],
             "main_path": "phase 9", "consensus_calls": b1_calls}
         if name == "dc_sort":
-            row["plans"] = [str(p) for p in real[6]]
+            row.update(library_ms_N2e20=rand[9], library_ms_wide_N2e20=wide[9],
+                       library_route="library_sort: stable torch.sort of "
+                       "each packed 64-bit key word, then one gather",
+                       plans=[str(p) for p in real[6]])
         rows.append(row)
     return rows
 
@@ -1142,15 +1262,19 @@ def main():
         t0 = time.time()
         b2 = phase_b2(dev)
         print(f"phase 11: done in {time.time() - t0:.1f} s")
-        # phase 14's two processes start up and run beside phase 12's
-        # host-bound dry run; both end before phase 13 traces the card
+        # phase 14's two processes and phase 15's three start up and run
+        # beside phase 12's host-bound dry run; all end before phase 13
+        # traces the card
         t0 = time.time()
         started = start_two_process(d)
-        dry = phase_dryrun(dev)
-        print(f"phase 12: done in {time.time() - t0:.1f} s")
-        t0 = time.time()
-        two = finish_two_process(started, gate_off_body)
-        print(f"phase 14: done {time.time() - t0:.1f} s after phase 12")
+        with ThreadPoolExecutor(1) as pool:
+            rdiff = pool.submit(phase_record_diff, d)
+            dry = phase_dryrun(dev)
+            print(f"phase 12: done in {time.time() - t0:.1f} s")
+            t0 = time.time()
+            two = finish_two_process(started, gate_off_body)
+            print(f"phase 14: done {time.time() - t0:.1f} s after phase 12")
+            rdiff = rdiff.result()
         t0 = time.time()
         idle = phase_idle(d)
         print(f"phase 13: done in {time.time() - t0:.1f} s")
@@ -1177,7 +1301,8 @@ def main():
                       "device_prepare": {"wall_s": b1_wall,
                                          "calls": b1_calls, **b1_call},
                       "b2": b2, "dryrun": dry, "idle_share": idle,
-                      "two_process": two, "ptxas": ptxas}))
+                      "two_process": two, "record_diff": rdiff,
+                      "ptxas": ptxas}))
     assert all(math.isfinite(r["ms"]) for r in rows)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

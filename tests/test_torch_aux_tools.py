@@ -1,17 +1,83 @@
 """The port's host CLIs uvcnorm, active_region and surrogate_align (copies
-of the JAX package's), the ports of tests/test_aux_tools.py's uvcnorm and
-active_region tests and of tests/test_surrogate.py; the realign test's
-re-call runs the port's uvc1 --device cpu."""
+of the JAX package's), the ports of tests/test_aux_tools.py's debarcode,
+uvcnorm and active_region tests and of tests/test_surrogate.py; the
+realign test's re-call runs the port's uvc1 --device cpu.  The debarcode
+tests build bin/debarcode first, as the port's native libraries are built
+(``make -C native`` at first use), so they run on a fresh checkout."""
 
 import contextlib
+import fcntl
 import gzip
 import io
 import os
 import random
+import subprocess
+
+import pytest
 
 from uvc_tpu_torch.cli import active_region, surrogate_align, uvcnorm
 from uvc_tpu_torch.io import bam as bam_mod
 from uvc_tpu_torch.io import bgzf, simulate
+from uvc_tpu_torch.utils import nativebuild
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+DEBARCODE = os.path.join(REPO, "bin", "debarcode")
+
+
+@pytest.fixture(scope="module")
+def debarcode():
+    """bin/debarcode: ``nativebuild.ensure_built()`` runs ``make -C
+    native`` on a checkout without bin/; where the libraries were built
+    before, the binary alone is made, under the same build lock."""
+    nativebuild.ensure_built()
+    if not os.path.exists(DEBARCODE):
+        lock = os.open(os.path.join(REPO, "native", ".build.lock"),
+                       os.O_CREAT | os.O_RDWR)
+        try:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            subprocess.run(["make", "-C", os.path.join(REPO, "native"),
+                            "../bin/debarcode"], capture_output=True,
+                           timeout=600, check=True)
+        finally:
+            os.close(lock)
+    assert os.path.exists(DEBARCODE)
+    return DEBARCODE
+
+
+def test_debarcode_moves_umi_to_name(tmp_path, debarcode):
+    r1 = str(tmp_path / "r1.fq.gz")
+    with gzip.open(r1, "wt") as fh:
+        fh.write("@read1\nACGTACGTTTTTGGGG\n+\nIIIIIIIIIIIIIIII\n")
+        fh.write("@read2\nTTTTAAAACCCCGGGG\n+\nIIIIIIIIIIIIIIII\n")
+    out1 = str(tmp_path / "o1.fq.gz")
+    rc = subprocess.run([debarcode, "-i", r1, "-o", out1, "-b", "0", "-e",
+                         "4"], capture_output=True)
+    assert rc.returncode == 0, rc.stderr
+    with gzip.open(out1, "rt") as fh:
+        lines = fh.read().splitlines()
+    assert lines[0].startswith("@read1#ACGT")
+    # the reference debarcode leaves the sequence intact
+    # (debarcode_main.c:128 writes seq.s/seq.l unmodified)
+    assert lines[1] == "ACGTACGTTTTTGGGG"
+    assert lines[4].startswith("@read2#TTTT")
+
+
+def test_debarcode_duplex(tmp_path, debarcode):
+    r1 = str(tmp_path / "r1.fq.gz")
+    r2 = str(tmp_path / "r2.fq.gz")
+    with gzip.open(r1, "wt") as fh:
+        fh.write("@m\nAGTACCCC\n+\nIIIIIIII\n")
+    with gzip.open(r2, "wt") as fh:
+        fh.write("@m\nTGGTAAAA\n+\nIIIIIIII\n")
+    o1 = str(tmp_path / "o1.fq.gz")
+    o2 = str(tmp_path / "o2.fq.gz")
+    rc = subprocess.run([debarcode, "-i", r1, "-o", o1, "-b", "0", "-e", "4",
+                         "-j", r2, "-p", o2, "-c", "0", "-f", "4", "-D"],
+                        capture_output=True)
+    assert rc.returncode == 0, rc.stderr
+    with gzip.open(o1, "rt") as fh:
+        name = fh.readline().strip()
+    assert "#AGTA+TGGT" in name
 
 
 def test_uvcnorm_filters_by_qual(tmp_path):

@@ -9,7 +9,9 @@ The tables: random, negative keys, INT32_MIN/INT32_MAX extremes, keys
 wider than one 64-bit word, all-equal keys, many duplicates, N = 1024,
 and the stage-1 and stage-2 tables of a real fragment stream.  The card
 test in tests/test_torch_device_consensus.py sorts the same tables.
-Imports no JAX.
+chip_smoke.py's library route of the sorts (``library_sort``: a stable
+torch.sort of each packed 64-bit word, top bit flipped, then one gather),
+its yardstick, is held to the same plain sort on the CPU.  Imports no JAX.
 """
 
 import ctypes
@@ -188,6 +190,21 @@ def test_host_radix_sort_matches_plain(host_sort, name):
         assert len(plan.words) > 1, str(plan)
     if name == "real_stage1":   # (inval, g, p, s) fit one word
         assert len(plan.words) == 1 and plan.widths[0] == 1, str(plan)
+
+
+@pytest.mark.parametrize("name", SORT_TABLES)
+def test_library_route_matches_plain(name):
+    """chip_smoke.library_sort, on a CPU tensor, against the stable plain
+    sort: every entry equal (the extremes and wide tables fill words to
+    their top bit, which the route flips to sort unsigned words as
+    int64)."""
+    import chip_smoke
+    table, nkeys = sort_table(name)
+    got = torch.from_numpy(table.copy())
+    chip_smoke.library_sort(got, nkeys)
+    want = torch.from_numpy(table.copy())
+    tdc.dc_sort_plain(want, nkeys)
+    assert torch.equal(got, want)
 
 
 def test_plan_packs_keys_whole_from_the_last():

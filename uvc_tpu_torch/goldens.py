@@ -6,8 +6,10 @@ golden_umi_duplex and golden_iontorrent exactly as tests/test_golden.py
 does, and returns each one's uvc1 arguments; ``build_tn_inputs`` those of
 golden_tn (a tumor and a normal BAM) as uvctn arguments;
 ``build_bench_input`` those of bench.py's end-to-end workload, and
-``build_tn_bench_inputs`` a tumor-normal pair at that scale.  ``compare``
-holds a VCF body against a golden (or a reference run's body):
+``build_tn_bench_inputs`` a tumor-normal pair at that scale, and
+``build_f32_parity_input`` tools/tpu_record_diff.py's low-AF workload.
+``compare`` holds a VCF body against a golden (or a reference run's
+body):
 
 - ``"f64"`` bar (the golden regime, tests/test_golden.py's
   ``body == expect``): the body byte-identical, ``#CHROM`` line
@@ -18,7 +20,8 @@ holds a VCF body against a golden (or a reference run's body):
   within 0.51, every numeric FORMAT value of every sample column within
   1, string fields equal.
 
-Both also report whether the body is byte-identical.
+Both also report whether the body is byte-identical.  ``record_diff`` is
+the f32 bar as tools/tpu_record_diff.py applies it.
 """
 
 import os
@@ -121,6 +124,29 @@ def build_bench_input(d):
     simulate.build_bam(bam, ref, depth=150, variants=variants, seed=6)
     _fasta(fa, ref)
     return fa, bam
+
+
+def build_f32_parity_input(d):
+    """(bam, fasta) of the f32-parity workload (tests/test_f32_parity.py,
+    tools/tpu_record_diff.py), written to d: 12 kbp at depth 120, a SNV
+    at AF 0.35, +CT and -2 at 0.30, and SNVs at 0.12 and 0.06, the
+    low-AF calls where f32 rounding would first cross the vqual gate."""
+    ref = simulate.random_ref(12000, 99)
+    variants = [
+        simulate.Variant(1500, f"{ref[1500]}>"
+                         + ("A" if ref[1500] != "A" else "G"), 0.35),
+        simulate.Variant(3000, "+CT", 0.30),
+        simulate.Variant(4500, "-2", 0.30),
+        simulate.Variant(6000, f"{ref[6000]}>"
+                         + ("C" if ref[6000] != "C" else "T"), 0.12),
+        simulate.Variant(8000, f"{ref[8000]}>"
+                         + ("T" if ref[8000] != "T" else "A"), 0.06),
+    ]
+    bam = os.path.join(d, "f32_parity.bam")
+    fa = os.path.join(d, "f32_parity.fa")
+    simulate.build_bam(bam, ref, depth=120, variants=variants, seed=77)
+    _fasta(fa, ref)
+    return bam, fa
 
 
 def _fasta(path, ref):
@@ -237,3 +263,14 @@ def compare(got, want, bar):
                 elif not ok:
                     errs.append(f"{key} sample {col} {tag} {vg} vs {vw}")
     return got == want, errs
+
+
+def record_diff(got, want):
+    """tools/tpu_record_diff.py's divergences of body ``got`` against the
+    reference body ``want``: the f32 bar, and a reference of fewer than 4
+    records is itself one (the workload is too small to tell)."""
+    errs = compare(got, want, "f32")[1]
+    n = len(_parse(want))
+    if n < 4:
+        errs.append(f"workload too small: {n} records")
+    return errs
