@@ -47,15 +47,27 @@ Phases, each of which raises on failure:
    link_m_overridden), on a wide-key table at N = 2^20 (full-range int32
    group and pos, negative values: its sort plans take two 64-bit
    words) and on the largest real fragment stream of the bench workload,
-   0 differing entries, both timed, each radix sort's plan printed; then
-   the bench workload through uvc1 --device cuda with
+   0 differing entries, both timed, each radix sort's plan printed;
+   dc_segments also by its device time (torch.profiler: the summed
+   durations of a call's kernels and memset, ``SEG_FAMILY``, each name
+   required in nine tenths of its records), beside its bound (the bytes
+   of the columns each stage must read and write, the columns of rows
+   that are not ok excepted, ``b1_bounds``) and the share of it reached,
+   and run 20 more times on the real stream and on the random
+   max/link_m_overridden table, stage 2 on stage 1's scratch, every
+   entry held to the plain version's and to the first run's each time;
+   then the bench workload through uvc1 --device cuda with
    UVC_TPU_DEVICE_PREPARE=1, counters set to 0 just before and read just
    after: each consensus call launches dc_sort and dc_segments twice,
-   and the VCF body is byte-identical to phase 5's gate-off body;
+   and the VCF body is byte-identical to phase 5's gate-off body; the
+   real stream is saved for phase 10;
 10. with --parent DIR (another checkout, e.g. the parent commit unpacked
-   with ``git archive``): kernel_times.py times K1-K3 of DIR and of this
-   tree in turns, parent, change, change, parent, one process each; the
-   parent's K1 times go into K1's row as "was";
+   with ``git archive``), run last: kernel_times.py times K1-K3 and
+   (``--b1``) dc_segments of DIR and of this tree in turns, parent,
+   change, change, parent, one process each, dc_segments on phase 9's
+   random 2^20 table and real stream, sorted by the plain versions; the
+   parent's K1 times go into K1's row as "was", its dc_segments times
+   (events and device, the mean of its two turns) into dc_segments' row;
 11. B2 (utils/device_bench.py): 10 chained evaluations of the model on a
    65,536-row f32 request kept on the card, best of 3 loops, with the
    launch counters read around it; rows/s and ms per evaluation with and
@@ -181,31 +193,54 @@ def cuda_ms(fn, reps):
     return a.elapsed_time(b) / reps
 
 
-def device_ms(fn, reps, kernel, tries=3):
-    """Mean device milliseconds of ``kernel``'s launches over ``reps``
-    calls of ``fn`` (one launch each), from torch.profiler's trace of
-    the card, after one warm-up call.  The trace can lose kernel records
-    (a few, or all of a window): a window that keeps fewer than nine
-    tenths of the launches is run again, and after ``tries`` such
-    windows the time is not measured (None)."""
+def device_ms(fn, reps, kernels, tries=3):
+    """Mean device milliseconds of one call of ``fn`` over ``reps`` calls,
+    from torch.profiler's trace of the card.  ``kernels`` maps each record
+    name a call must leave (a kernel's name, or each of a family's when a
+    call launches several; a trace's key holds it) to its records a call;
+    a call's time is the sum, over the names, of the mean duration of the
+    name's records times its records a call.  The trace runs under a
+    schedule whose warm-up step holds one more call, so that the card's
+    tracing starts before the recorded window.  A window in which any name
+    kept fewer than nine tenths of the records it should is run again,
+    and after ``tries`` such windows the time is not measured (None)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
     fn()
     torch.cuda.synchronize()
+    first = next(iter(kernels))
     for _ in range(tries):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA], schedule=schedule(
+                wait=0, warmup=1, active=1, repeat=1)) as prof:
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        evs = [e for e in prof.key_averages() if f"{kernel}_kernel" in e.key]
-        n = sum(e.count for e in evs)
-        if n < reps:
-            print(f"  device time of {kernel}: a trace window kept {n} of "
-                  f"{reps} launches")
-        if n >= reps * 0.9:
-            return sum(e.device_time_total for e in evs) / n / 1e3
-    print(f"  device time of {kernel} not measured: the trace kept {n} of "
-          f"{reps} launches in each of {tries} windows")
+            prof.step()
+        evs = list(prof.key_averages())
+        kept = {}   # name: (records, device us)
+        for name in kernels:
+            mine = [e for e in evs if name in e.key]
+            kept[name] = (sum(e.count for e in mine),
+                          sum(e.device_time_total for e in mine))
+        if len(kernels) > 1:
+            print("  device time records: " + ", ".join(
+                f"{name} x{n} " + (f"{us / n / 1e3:.5f} ms" if n else "-")
+                for name, (n, us) in kept.items()))
+        short = {name: n for name, (n, _) in kept.items()
+                 if n < reps * kernels[name]}
+        if short:
+            print(f"  device time of {first}: a trace window kept "
+                  + ", ".join(f"{n} of {reps * kernels[name]} {name}"
+                              for name, n in short.items()))
+        if all(n >= 0.9 * reps * kernels[name] for name, (n, _) in
+               kept.items()):
+            return sum(us / n * kernels[name]
+                       for name, (n, us) in kept.items()) / 1e3
+    print(f"  device time of {first} not measured: a name kept fewer than "
+          f"nine tenths of its records in each of {tries} windows")
     return None
 
 
@@ -267,7 +302,7 @@ def check_and_time(tag, name, model, pi, oi, of, kernel, plain, leaves,
     dev = None
     if pi.shape[0] == MAIN_ROWS:
         dev = device_ms(lambda: kernel(pi, oi_k, of_k, model, *mode), 200,
-                        name)
+                        {f"{name}_kernel": 1})
     print(f"{tag}: {len(leaves)} leaves, {n_diff} entries differ, max "
           f"|diff| {mad}; kernel {ms:.4f} ms"
           + (f" (device {dev:.4f} ms)" if dev is not None else "")
@@ -585,13 +620,79 @@ def library_sort(buf, nkeys):
         buf.copy_(buf[:, perm])
 
 
-def b1_compare(dev, cols, mode, ovr, reps):
+# dc_segments' records in a torch.profiler trace of one call (both stages,
+# stage 2 on stage 1's scratch), for device_ms: this tree's two passes, the
+# tail of the stage-2 table and the one memset of the scratch ...
+SEG_FAMILY = {"seg_pass<1>": 1, "seg_pass<2>": 1, "seg_tail": 1,
+              "Memset (Device)": 1}
+# ... and the seven kernels of the design before the one-pass stages (a
+# count, a one-block scan and a rank a stage, and keys2), no memset
+SEG_FAMILY_BEFORE = {"seg_count": 2, "seg_scan": 2, "seg_unique": 1,
+                     "keys2": 1, "seg_groups": 1}
+
+
+def seg_family(tdc):
+    """The SEG_FAMILY entry that times the dc_segments of the checkout
+    whose ops/device_consensus module is ``tdc``: the family its CUDA
+    source defines."""
+    src = os.path.join(os.path.dirname(os.path.dirname(tdc.__file__)),
+                       "kernels", "csrc", "device_consensus.cu")
+    with open(src) as fh:
+        return SEG_FAMILY if "seg_pass(" in fh.read() else SEG_FAMILY_BEFORE
+
+
+def b1_tables():
+    """(random, wide) event columns of phase 9's 2^20-row tables (seed 9):
+    the random one as the bench's streams are laid out, the wide one with
+    full-range int32 group and pos and negative values."""
+    import numpy as np
+    rng = np.random.default_rng(9)
+    n = (1 << 20) - 4096
+    cols = (rng.integers(0, n // 2, n), rng.integers(0, 30000, n),
+            rng.integers(0, 14, n), rng.integers(0, 60, n))
+    i32 = (-2**31, 2**31)
+    wide = (rng.integers(*i32, n), rng.integers(*i32, n),
+            rng.integers(0, 14, n), rng.integers(-60, 60, n))
+    return cols, wide
+
+
+def seg_times(seg, s1, s2, mode_sum, ovr, reps, family=None):
+    """(CUDA-event ms, device ms or None) of one call's two stages of
+    ``seg`` (dc_segments or its plain version) from the sorted tables
+    ``s1`` and ``s2``, stage 2 on stage 1's scratch where ``seg`` takes
+    one (the program's way; the design before the one-pass stages had
+    none).  The
+    device time (``device_ms`` over 200 calls) sums the records of
+    ``family`` (a SEG_FAMILY entry), and is taken only where one is
+    given."""
+    import inspect
+    import torch
+    N, kw = s1.shape[1], dict(dtype=torch.int32, device=s1.device)
+    out_u, out_c = torch.zeros((4, N), **kw), torch.zeros((6, N), **kw)
+    buf2, counts = torch.empty((9, N), **kw), torch.zeros(2, **kw)
+    pass_on = "scratch" in inspect.signature(seg).parameters
+
+    def call():
+        scratch = seg(1, s1, mode_sum, ovr, out_u, buf2, counts)
+        seg(2, s2, mode_sum, ovr, out_c, None, counts,
+            **({"scratch": scratch} if pass_on else {}))
+    ms = cuda_ms(call, reps)
+    return ms, (device_ms(call, 200, family) if family else None)
+
+
+def b1_compare(dev, cols, mode, ovr, reps, repeats=0):
     """dc_sort and dc_segments against their plain versions on the card
     from the stage-1 table of ``cols``, and the two sorts' library route
-    (``library_sort``) against dc_sort_plain: (differing entries, kernel
-    ms and plain ms per family, N, the kernel's two sort plans, (n_uniq,
-    n_grp), the library route's differing entries and ms).  The sorts'
-    times are those of both sorts less the table copies before them."""
+    (``library_sort``) against dc_sort_plain.  Returns a dict: differing
+    entries (``n_diff``), kernel and plain ms of each family (the sorts'
+    less the table copies before them), dc_segments' device ms, N, the
+    kernel's two sort plans, the counts of b1_bounds (n_rows, n_uniq,
+    n_pos, n_grp), the library route's differing entries and ms, and,
+    over ``repeats`` more runs of dc_segments from the same sorted tables,
+    the entries that differ from the plain version's and from the first
+    run's (``repeat_diff``).  The first kernel run's stage 2 zeroes its own
+    scratch; the timed calls and the repeats hand it stage 1's, as the
+    program does."""
     import torch
     from uvc_tpu_torch.ops import device_consensus as tdc
     table = torch.from_numpy(tdc.stage1_table(*cols)).to(dev)
@@ -618,16 +719,30 @@ def b1_compare(dev, cols, mode, ovr, reps):
         ms_sort = cuda_ms(lambda: (buf1.copy_(table), sort(buf1, tdc.NKEYS1),
                                    buf2.copy_(t2), sort(buf2, tdc.NKEYS2)), n)
         ms_copy = cuda_ms(lambda: (buf1.copy_(table), buf2.copy_(t2)), n)
-        ms_seg = cuda_ms(lambda: (
-            seg(1, s1, mode_sum, ovr, out_u, buf2, counts),
-            seg(2, s2, mode_sum, ovr, out_c, None, counts)), n)
-        runs[impl] = ([s1, t2, s2, out_u, out_c, counts],
-                      max(ms_sort - ms_copy, 0.0), ms_seg, plans, ms_copy)
-    n_diff = sum(int((a != b).sum()) for a, b in zip(runs["kernel"][0],
-                                                     runs["plain"][0]))
-    n_uniq, n_grp = (int(x) for x in runs["kernel"][0][5].cpu())
+        ms_seg, dev_seg = seg_times(seg, s1, s2, mode_sum, ovr, n,
+                                    SEG_FAMILY if impl == "kernel" else None)
+        runs[impl] = dict(outs=[s1, t2, s2, out_u, out_c, counts],
+                          sort_ms=max(ms_sort - ms_copy, 0.0), seg_ms=ms_seg,
+                          seg_device_ms=dev_seg, plans=plans, copy_ms=ms_copy)
+    k, p = runs["kernel"], runs["plain"]
+    n_diff = sum(int((a != b).sum()) for a, b in zip(k["outs"], p["outs"]))
+    n_uniq, n_grp = (int(x) for x in k["outs"][5].cpu())
+    # the ok rows each stage reads in full
+    n_rows, n_pos = (int((t[0] == 0).sum()) for t in (table, k["outs"][2]))
+    # dc_segments again and again from the sorted tables: the look-back's
+    # ranks must come out the same every time
+    s1, t2, s2, out_u, out_c, counts = p["outs"]
+    first, repeat_diff = None, []
+    for _ in range(repeats):
+        o = [torch.zeros((4, N), **kw), torch.empty((9, N), **kw),
+             torch.zeros((6, N), **kw), torch.zeros(2, **kw)]
+        scratch = tdc.dc_segments(1, s1, mode_sum, ovr, o[0], o[1], o[3])
+        tdc.dc_segments(2, s2, mode_sum, ovr, o[2], None, o[3], scratch)
+        first = first or o
+        repeat_diff.append(sum(
+            int((a != b).sum()) + int((a != c).sum())
+            for a, b, c in zip(o, (out_u, t2, out_c, counts), first)))
     # the library route, from the plain run's tables, timed as the kernel
-    s1, t2, s2 = runs["plain"][0][:3]
     buf1.copy_(table)
     library_sort(buf1, tdc.NKEYS1)
     buf2.copy_(t2)
@@ -636,62 +751,92 @@ def b1_compare(dev, cols, mode, ovr, reps):
     ms_lib = cuda_ms(lambda: (
         buf1.copy_(table), library_sort(buf1, tdc.NKEYS1),
         buf2.copy_(t2), library_sort(buf2, tdc.NKEYS2)), reps)
-    return (n_diff, runs["kernel"][1], runs["kernel"][2], runs["plain"][1],
-            runs["plain"][2], N, runs["kernel"][3], (n_uniq, n_grp),
-            lib_diff, max(ms_lib - runs["kernel"][4], 0.0))
+    return dict(n_diff=n_diff, sort_ms=k["sort_ms"], seg_ms=k["seg_ms"],
+                seg_device_ms=k["seg_device_ms"], sort_plain_ms=p["sort_ms"],
+                seg_plain_ms=p["seg_ms"], N=N, plans=k["plans"],
+                n_rows=n_rows, n_uniq=n_uniq, n_pos=n_pos, n_grp=n_grp,
+                lib_diff=lib_diff,
+                lib_ms=max(ms_lib - k["copy_ms"], 0.0),
+                repeat_diff=repeat_diff)
 
 
-def b1_bounds(r):
-    """{family: (bound ms, bound_by)} of one consensus call's kernels on
-    b1_compare's result ``r``: each sort reads and writes its table (6 and
-    9 int32 rows of N); stage 1 reads its table, writes the n_uniq unique
-    rows (4 columns) and the stage-2 table, stage 2 reads that table and
-    writes the n_grp consensus rows (6 columns), at 3.35 TB/s (their
-    integer work is far below the card's rate)."""
+def b1_bounds(N, n_rows, n_uniq, n_pos, n_grp):
+    """{family: (bound ms, bound_by, bytes)} of one consensus call's
+    kernels on an N-row table with n_rows ok rows, n_uniq unique rows, of
+    which n_pos have a value above 0, and n_grp groups, at 3.35 TB/s
+    (their integer work is far below the card's rate).  Each sort reads
+    and writes its table (6 and 9 int32 rows of N).  The segments count
+    the columns each stage must move; a row that is not ok joins no
+    segment, so only its flag must be read.  Stage 1 reads inval (N) and
+    g, p, s and v of the ok rows (4 n_rows), and writes the unique rows
+    (4 n_uniq) and the stage-2 table (9 N); stage 2 reads c_inv (N) and
+    g, p, st, s and v of its ok rows (5 n_pos), and writes the consensus
+    rows (6 n_grp)."""
     from uvc_tpu_torch.kernels.bounds import HBM_BYTES_PER_S
-    N, (nu, ng) = r[5], r[7]
     sort_b = 2 * 4 * N * (6 + 9)
-    seg_b = 4 * (6 * N + 4 * nu + 9 * N + 9 * N + 6 * ng)
-    return {"dc_sort": (sort_b / HBM_BYTES_PER_S * 1e3, "bytes"),
-            "dc_segments": (seg_b / HBM_BYTES_PER_S * 1e3, "bytes")}
+    seg_b = 4 * (N + 4 * n_rows + 4 * n_uniq + 9 * N
+                 + N + 5 * n_pos + 6 * n_grp)
+    return {name: (b / HBM_BYTES_PER_S * 1e3, "bytes", b)
+            for name, b in (("dc_sort", sort_b), ("dc_segments", seg_b))}
+
+
+def b1_bounds_of(r):
+    """b1_bounds of one b1_compare result."""
+    return b1_bounds(r["N"], r["n_rows"], r["n_uniq"], r["n_pos"], r["n_grp"])
 
 
 def print_b1(tag, r):
-    print(f"{tag}: {r[0]} entries differ; dc_sort x2 {r[1]:.4f} ms (plain "
-          f"{r[3]:.4f}, library route {r[9]:.4f} with {r[8]} entries "
-          f"differing from plain), dc_segments x2 {r[2]:.4f} ms (plain "
-          f"{r[4]:.4f})")
-    for stage, plan in zip((1, 2), r[6]):
+    bound = b1_bounds_of(r)["dc_segments"][0]
+    dev = r["seg_device_ms"]
+    share = (f"{bound / r['seg_ms']:.1%} of it by events"
+             + (f", {bound / dev:.1%} by device time" if dev else ""))
+    print(f"{tag}: {r['n_diff']} entries differ; dc_sort x2 "
+          f"{r['sort_ms']:.4f} ms (plain {r['sort_plain_ms']:.4f}, library "
+          f"route {r['lib_ms']:.4f} with {r['lib_diff']} entries differing "
+          f"from plain), dc_segments x2 {r['seg_ms']:.4f} ms (device "
+          + (f"{dev:.4f}" if dev else "not measured")
+          + f", plain {r['seg_plain_ms']:.4f}); n_rows {r['n_rows']}, n_uniq "
+          f"{r['n_uniq']}, n_pos {r['n_pos']}, n_grp {r['n_grp']}; "
+          f"dc_segments bound {bound:.4f} ms (bytes of the columns each "
+          f"stage moves): {share}")
+    if r["repeat_diff"]:
+        print(f"  dc_segments x{len(r['repeat_diff'])} more runs: entries "
+              f"differing from plain and from the first run "
+              f"{r['repeat_diff']}")
+    for stage, plan in zip((1, 2), r["plans"]):
         print(f"  dc_sort stage {stage} plan: {plan}")
 
 
+def b1_failed(r):
+    return r["n_diff"] or r["lib_diff"] or any(r["repeat_diff"])
+
+
 def phase_b1(dev, d, gate_off_body, gate_off_wall):
-    """Phase 9: B1 kernels against plain, then the gated main path."""
+    """Phase 9: B1 kernels against plain, then the gated main path; the
+    largest real stream it sent is written to ``d``/b1_real_stream.npz
+    for phase 10."""
     import numpy as np
     from uvc_tpu_torch import goldens, kernels
     from uvc_tpu_torch.ops import device_consensus as tdc
     res, errs = {}, []
-    rng = np.random.default_rng(9)
-    n = (1 << 20) - 4096
-    cols = (rng.integers(0, n // 2, n), rng.integers(0, 30000, n),
-            rng.integers(0, 14, n), rng.integers(0, 60, n))
+    cols, wide = b1_tables()
     for mode in ("max", "sum"):
         for ovr in (False, True):
-            r = b1_compare(dev, cols, mode, ovr, 5)
+            r = b1_compare(dev, cols, mode, ovr, 5,
+                           20 if (mode, ovr) == ("max", True) else 0)
             res[("random", mode, ovr)] = r
-            print_b1(f"phase 9 random N={r[5]} {mode} ovr={ovr}", r)
-            if r[0] or r[8]:
-                errs.append(f"random {mode} ovr={ovr}: {r[0]} entries "
-                            f"differ, library route {r[8]}")
-    i32 = (-2**31, 2**31)
-    wide = (rng.integers(*i32, n), rng.integers(*i32, n),
-            rng.integers(0, 14, n), rng.integers(-60, 60, n))
+            print_b1(f"phase 9 random N={r['N']} {mode} ovr={ovr}", r)
+            if b1_failed(r):
+                errs.append(f"random {mode} ovr={ovr}: {r['n_diff']} entries "
+                            f"differ, library route {r['lib_diff']}, "
+                            f"repeats {r['repeat_diff']}")
     r = b1_compare(dev, wide, "sum", True, 5)
     res[("wide", "sum", True)] = r
-    print_b1(f"phase 9 wide keys N={r[5]} sum ovr=True", r)
-    if r[0] or r[8] or any(len(p.words) < 2 for p in r[6]):
-        errs.append(f"wide keys: {r[0]} entries differ, library route "
-                    f"{r[8]}, plans {[str(p) for p in r[6]]}")
+    print_b1(f"phase 9 wide keys N={r['N']} sum ovr=True", r)
+    if b1_failed(r) or any(len(p.words) < 2 for p in r["plans"]):
+        errs.append(f"wide keys: {r['n_diff']} entries differ, library "
+                    f"route {r['lib_diff']}, plans "
+                    f"{[str(p) for p in r['plans']]}")
 
     # the gated main path, recording its largest real fragment stream
     fa, bam = os.path.join(d, "bench.fa"), os.path.join(d, "bench.bam")
@@ -735,13 +880,15 @@ def phase_b1(dev, d, gate_off_body, gate_off_wall):
     if not same:
         errs.append("the gate-on VCF body differs from the gate-off body")
     (rcols, rmode, rovr), = biggest
-    r = b1_compare(dev, rcols, rmode, rovr, 20)
+    stream = os.path.join(d, "b1_real_stream.npz")
+    np.savez(stream, *rcols, mode=rmode, ovr=rovr)
+    r = b1_compare(dev, rcols, rmode, rovr, 20, 20)
     res[("real", rmode, rovr)] = r
-    print_b1(f"phase 9 real stream of {len(rcols[0])} rows (N={r[5]}, "
+    print_b1(f"phase 9 real stream of {len(rcols[0])} rows (N={r['N']}, "
              f"{rmode}, ovr={rovr})", r)
-    if r[0] or r[8]:
-        errs.append(f"real stream: {r[0]} entries differ, library route "
-                    f"{r[8]}")
+    if b1_failed(r):
+        errs.append(f"real stream: {r['n_diff']} entries differ, library "
+                    f"route {r['lib_diff']}, repeats {r['repeat_diff']}")
     # one consensus call's cost on that stream, by part (host clock)
     t0 = time.perf_counter()
     for _ in range(3):
@@ -751,38 +898,77 @@ def phase_b1(dev, d, gate_off_body, gate_off_wall):
     for _ in range(3):
         tdc.device_reduce_consensus(*rcols, 0, rmode, rovr)
     call_ms = (time.perf_counter() - t0) * 1e3 / 3
+    kern_ms = r["sort_ms"] + r["seg_ms"]
     print(f"phase 9 one consensus call on the real stream: {call_ms:.3f} ms "
-          f"in all; host table {table_ms:.3f} ms, kernels "
-          f"{r[1] + r[2]:.3f} ms, the rest (copies, allocation, launches, "
-          f"slicing) {call_ms - table_ms - r[1] - r[2]:.3f} ms")
+          f"in all; host table {table_ms:.3f} ms, kernels {kern_ms:.3f} ms, "
+          f"the rest (copies, allocation, launches, slicing) "
+          f"{call_ms - table_ms - kern_ms:.3f} ms")
     if errs:
         raise AssertionError("B1:\n" + "\n".join(errs))
     return res, launches, calls, wall, dict(call_ms=call_ms,
-                                            table_ms=table_ms)
+                                            table_ms=table_ms), stream
 
 
-def phase_parent(parent):
-    """Phase 10: K1-K3 of the checkout ``parent`` and of this tree timed
-    by kernel_times.py in turns (parent, change, change, parent), one
-    process each.  Returns [(label, {"<kernel> <regime> <rows>": ms})]."""
+def b1_segment_times(dev, stream):
+    """This checkout's dc_segments, both stages of a call, on phase 9's
+    random 2^20 table (max, link_m_overridden) and on the real stream
+    saved at ``stream``: {"N2e20" / "real": (event ms over 20 calls,
+    device ms over 200 of the family the checkout's source defines,
+    ``seg_family``)}.  The sorted tables come from the plain versions, so
+    two checkouts time the same inputs."""
+    import numpy as np
+    import torch
+    from uvc_tpu_torch.ops import device_consensus as tdc
+    family = seg_family(tdc)
+    z = np.load(stream)
+    tables = {"N2e20": (b1_tables()[0], "max", True),
+              "real": (tuple(z[f"arr_{i}"] for i in range(4)),
+                       str(z["mode"]), bool(z["ovr"]))}
+    out = {}
+    for name, (cols, mode, ovr) in tables.items():
+        s1 = torch.from_numpy(tdc.stage1_table(*cols)).to(dev)
+        N, kw = s1.shape[1], dict(dtype=torch.int32, device=dev)
+        tdc.dc_sort_plain(s1, tdc.NKEYS1)
+        s2, counts = torch.empty((9, N), **kw), torch.zeros(2, **kw)
+        tdc.dc_segments_plain(1, s1, mode == "sum", ovr,
+                              torch.zeros((4, N), **kw), s2, counts)
+        tdc.dc_sort_plain(s2, tdc.NKEYS2)
+        out[name] = seg_times(tdc.dc_segments, s1, s2, mode == "sum", ovr,
+                              20, family)
+    return out
+
+
+def phase_parent(parent, stream):
+    """Phase 10: K1-K3 and dc_segments of the checkout ``parent`` and of
+    this tree timed by kernel_times.py in turns (parent, change, change,
+    parent), one process each, dc_segments on the real stream saved at
+    ``stream``.  Returns [(label, {"<kernel> <regime> <rows>": ms}, {"N2e20"
+    / "real": (event ms, device ms)})]."""
     turns = []
     for label, tree in (("parent", parent), ("change", REPO),
                         ("change", REPO), ("parent", parent)):
         r = subprocess.run(
             [sys.executable, os.path.join(REPO, "kernel_times.py"),
-             "--checkout", tree, "--label", label], capture_output=True,
-            text=True, timeout=900)
+             "--checkout", tree, "--label", label, "--b1", stream],
+            capture_output=True, text=True, timeout=900)
         if r.returncode != 0:
             raise RuntimeError(f"kernel_times.py --checkout {tree} returned "
                                f"{r.returncode}:\n{r.stderr[-3000:]}")
         lines = r.stdout.strip().splitlines()
         print("\n".join(f"phase 10 {l}" for l in lines[:-1]))
-        turns.append((label, json.loads(lines[-1])["ms"]))
+        res = json.loads(lines[-1])
+        turns.append((label, res["ms"], res["b1"]))
     for key in turns[0][1]:
-        p = [ms[key] for lab, ms in turns if lab == "parent"]
-        c = [ms[key] for lab, ms in turns if lab == "change"]
+        p = [ms[key] for lab, ms, _ in turns if lab == "parent"]
+        c = [ms[key] for lab, ms, _ in turns if lab == "change"]
         print(f"phase 10 {key}: parent {p[0]:.4f} / {p[1]:.4f} ms, change "
               f"{c[0]:.4f} / {c[1]:.4f} ms, {sum(p) / sum(c):.2f}x")
+    for key in turns[0][2]:
+        for i, what in ((0, "events"), (1, "device")):
+            p = [b1[key][i] for lab, _, b1 in turns if lab == "parent"]
+            c = [b1[key][i] for lab, _, b1 in turns if lab == "change"]
+            print(f"phase 10 dc_segments {key} ({what}): parent {p} ms, "
+                  f"change {c} ms")
     return turns
 
 
@@ -792,12 +978,31 @@ def k1_was(turns):
     if not turns:
         return None, None
     out = {"parent": {}, "change": {}}
-    for label, ms in turns:
+    for label, ms, _ in turns:
         for key, v in ms.items():
             name, reg, rows = key.split()
             if name == "capitals_vq":
                 out[label].setdefault(f"{reg}_{rows}", []).append(v)
     return out["parent"], out["change"]
+
+
+def seg_was(turns):
+    """dc_segments' row's "was" keys from phase 10: the parent's mean
+    event and device ms over its two turns, on the real stream and at
+    2^20, and every turn's numbers; {} without phase 10."""
+    if not turns:
+        return {}
+
+    def mean(label, key, i):
+        v = [b1[key][i] for lab, _, b1 in turns if lab == label]
+        return None if None in v else sum(v) / len(v)
+    return {"was_ms": mean("parent", "real", 0),
+            "was_ms_N2e20": mean("parent", "N2e20", 0),
+            "was_device_ms": mean("parent", "real", 1),
+            "was_device_ms_N2e20": mean("parent", "N2e20", 1),
+            "in_turns": [(lab, b1) for lab, _, b1 in turns],
+            "was_kernel": "the --parent checkout's, timed by kernel_times.py "
+                          "--b1 in turns"}
 
 
 MODEL_KERNELS = ("capitals_vq", "dpv", "qual_tail")
@@ -1180,26 +1385,39 @@ def kernel_rows(kres, rres, launches, tn_launches, b1, b1_launches,
     real = next(v for k, v in b1.items() if k[0] == "real")
     rand = b1[("random", "max", True)]
     wide = b1[("wide", "sum", True)]
-    real_bound, rand_bound = b1_bounds(real), b1_bounds(rand)
-    for i, name in ((1, "dc_sort"), (2, "dc_segments")):
+    real_bound, rand_bound = (b1_bounds_of(r) for r in (real, rand))
+    for name, fam in (("dc_sort", "sort"), ("dc_segments", "seg")):
         row = {
             "name": name, "route": "cuda",
             "source": f"{csrc}/device_consensus.cu",
             "replaces": "uvc_tpu/ops/device_consensus.py:58",
             "launches": b1_launches[name],
-            "max_abs_err": float(max(v[0] for v in b1.values())),
-            "ms": real[i], "plain_ms": real[i + 2],
+            "max_abs_err": float(max(v["n_diff"] for v in b1.values())),
+            "ms": real[f"{fam}_ms"], "plain_ms": real[f"{fam}_plain_ms"],
             "bound_ms": real_bound[name][0], "bound_by": real_bound[name][1],
-            "library_ms": real[9] if name == "dc_sort" else None,
-            "rows": real[5], "bound_ms_N2e20": rand_bound[name][0],
-            "ms_N2e20": rand[i], "plain_ms_N2e20": rand[i + 2],
-            "ms_wide_N2e20": wide[i], "plain_ms_wide_N2e20": wide[i + 2],
+            "library_ms": real["lib_ms"] if name == "dc_sort" else None,
+            "rows": real["N"], "bound_ms_N2e20": rand_bound[name][0],
+            "ms_N2e20": rand[f"{fam}_ms"],
+            "plain_ms_N2e20": rand[f"{fam}_plain_ms"],
+            "ms_wide_N2e20": wide[f"{fam}_ms"],
+            "plain_ms_wide_N2e20": wide[f"{fam}_plain_ms"],
             "main_path": "phase 9", "consensus_calls": b1_calls}
         if name == "dc_sort":
-            row.update(library_ms_N2e20=rand[9], library_ms_wide_N2e20=wide[9],
+            row.update(library_ms_N2e20=rand["lib_ms"],
+                       library_ms_wide_N2e20=wide["lib_ms"],
                        library_route="library_sort: stable torch.sort of "
                        "each packed 64-bit key word, then one gather",
-                       plans=[str(p) for p in real[6]])
+                       plans=[str(p) for p in real["plans"]])
+        else:
+            row.update(device_ms=real["seg_device_ms"],
+                       device_ms_N2e20=rand["seg_device_ms"],
+                       device_ms_wide_N2e20=wide["seg_device_ms"],
+                       repeats={"real": real["repeat_diff"],
+                                "N2e20": rand["repeat_diff"]},
+                       status="redesigned: one pass per stage, decoupled "
+                       "look-back", library_reason="none: a cumsum, 3-5 "
+                       "scatter_reduce calls and gathers a stage",
+                       **seg_was(turns))
         rows.append(row)
     return rows
 
@@ -1208,7 +1426,8 @@ def main():
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", default=None,
-                    help="a checkout whose K1-K3 phase 10 times in turns")
+                    help="a checkout whose K1-K3 and dc_segments phase 10 "
+                    "times in turns")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -1256,7 +1475,7 @@ def main():
             phase_tn_main_path(d)
         print(f"phase 8: done in {time.time() - t0:.1f} s")
         t0 = time.time()
-        b1, b1_launches, b1_calls, b1_wall, b1_call = phase_b1(
+        b1, b1_launches, b1_calls, b1_wall, b1_call, stream = phase_b1(
             dev, d, gate_off_body, wall)
         print(f"phase 9: done in {time.time() - t0:.1f} s")
         t0 = time.time()
@@ -1278,13 +1497,13 @@ def main():
         t0 = time.time()
         idle = phase_idle(d)
         print(f"phase 13: done in {time.time() - t0:.1f} s")
+        turns = []
+        if args.parent:
+            t0 = time.time()
+            turns = phase_parent(os.path.abspath(args.parent), stream)
+            print(f"phase 10: done in {time.time() - t0:.1f} s")
     if any(m.split(".")[0] in BLOCKED for m in sys.modules):
         raise AssertionError("jax or uvc_tpu was imported")
-    turns = []
-    if args.parent:
-        t0 = time.time()
-        turns = phase_parent(os.path.abspath(args.parent))
-        print(f"phase 10: done in {time.time() - t0:.1f} s")
 
     rows = kernel_rows(kres, rres, launches, tn_launches, b1,
                        b1_launches, b1_calls, turns)

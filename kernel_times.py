@@ -3,7 +3,7 @@
 NVIDIA GPU, tumor-only, at the main path's 128-row request and at 65,536
 rows, in both regimes.
 
-    python3 kernel_times.py [--checkout DIR] [--label NAME]
+    python3 kernel_times.py [--checkout DIR] [--label NAME] [--b1 STREAM]
 
 DIR (default: this script's directory) is the root of a checkout whose
 ``uvc_tpu_torch`` is imported and whose kernels are built there, so two
@@ -17,9 +17,16 @@ K1's (and K2's) leaves as the model chain leaves them.  At 128 rows the
 host's launch rate bounds the event mean, so the kernels' own device
 time there comes from torch.profiler's trace of the card as well
 (``device_ms``: the mean kernel duration of the launches the trace
-keeps, at least 180 of 200; chip_smoke.device_ms).  Prints the card,
-ptxas's registers, stack and spills of each model kernel where this call
-built the checkout's library, and one JSON line.
+keeps, at least 180 of 200; chip_smoke.device_ms).  With ``--b1 STREAM``
+it also times the checkout's dc_segments, both stages of a call, on
+chip_smoke.py phase 9's random 2^20-row table and on the real fragment
+stream that phase 9 saved at STREAM (an .npz), from tables sorted by the
+plain versions, so two checkouts time the same inputs: a CUDA-event mean
+over 20 calls and the device time of a call over 200, summed over the
+records of the kernel family that the checkout's source defines
+(chip_smoke.b1_segment_times, chip_smoke.seg_family).  Prints the card, ptxas's registers,
+stack and spills of each model kernel where this call built the
+checkout's library, and one JSON line.
 """
 
 import argparse
@@ -27,8 +34,8 @@ import json
 import os
 import sys
 
-from chip_smoke import MAIN_ROWS, N_ROWS, TILE, card_line, cuda_ms, \
-    device_ms, ptxas_table
+from chip_smoke import MAIN_ROWS, N_ROWS, TILE, b1_segment_times, \
+    card_line, cuda_ms, device_ms, ptxas_table
 
 
 def main():
@@ -36,6 +43,8 @@ def main():
     ap.add_argument("--checkout", default=os.path.dirname(
         os.path.abspath(__file__)))
     ap.add_argument("--label", default=None)
+    ap.add_argument("--b1", default=None, metavar="STREAM",
+                    help="also time dc_segments, on this real stream (.npz)")
     args = ap.parse_args()
     import numpy as np
     import torch
@@ -83,7 +92,8 @@ def main():
                 out[key] = cuda_ms(lambda: kernel(pi, oi, of, model),
                                    200 if rows == MAIN_ROWS else 20)
                 t_dev = device_ms(lambda: kernel(pi, oi, of, model), 200,
-                                  name) if rows == MAIN_ROWS else None
+                                  {f"{name}_kernel": 1}) \
+                    if rows == MAIN_ROWS else None
                 if t_dev is not None:
                     dev_ms[key] = t_dev
             del pi, oi, of
@@ -91,8 +101,12 @@ def main():
     for k, v in out.items():
         t_dev = f", device {dev_ms[k]:.4f} ms" if k in dev_ms else ""
         print(f"{label} {k}: {v:.4f} ms{t_dev}")
+    b1 = b1_segment_times(dev, args.b1) if args.b1 else {}
+    for k, (ms, t_dev) in b1.items():
+        print(f"{label} dc_segments {k}: {ms:.4f} ms, device "
+              + (f"{t_dev:.4f} ms" if t_dev is not None else "not measured"))
     print(json.dumps({"checkout": label, "card": card, "ms": out,
-                      "device_ms": dev_ms}))
+                      "device_ms": dev_ms, "b1": b1}))
 
 
 if __name__ == "__main__":

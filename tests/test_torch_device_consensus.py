@@ -9,7 +9,8 @@ The plain sorts on the JAX program's keys give the tables that an index
 key would.  The port's uvc1 with UVC_TPU_DEVICE_PREPARE=1 writes the same
 VCF body as without it.  On a card (marker ``cuda``) dc_sort and
 dc_segments are held to their plain versions, dc_sort also on the edge
-tables of tests/test_torch_radix_sort.py.  ``DEVICE`` is the card by
+tables of tests/test_torch_radix_sort.py, dc_segments on those of
+tests/test_torch_segments.py.  ``DEVICE`` is the card by
 default, so a module fixture sets it to the CPU here, and a fresh process
 shows the default.  JAX is imported inside the CPU tests, so the card-only
 tests also run on a machine without it:
@@ -26,6 +27,7 @@ import torch
 
 from test_torch_radix_sort import (SORT_TABLES, plain_stage_tables,
                                    real_stream, sort_table)
+from test_torch_segments import SEGMENT_TABLES, plain_stages, segment_case
 from uvc_tpu_torch import kernels
 from uvc_tpu_torch.ops import device_consensus as tdc
 
@@ -246,3 +248,21 @@ def test_kernels_match_plain_on_card(cuda, mode, ovr):
         got = torch.from_numpy(table).to(cuda)
         plan = tdc.dc_sort(got, nkeys)
         assert torch.equal(got.cpu(), want), (name, str(plan))
+    # the host segment test's edge tables (one segment across every tile,
+    # segments and groups starting at a tile's last row, no valid row,
+    # int32 extremes, rows marked invalid inside the valid range, ...),
+    # stage 2 on stage 1's scratch as the program runs it (above, each
+    # stage zeroed its own)
+    for name in SEGMENT_TABLES:
+        buf1, mode_sum, ovr = segment_case(name)
+        want = plain_stages(buf1, mode_sum, ovr)
+        N = buf1.shape[1]
+        kw = dict(dtype=torch.int32, device=cuda)
+        out_u, out_c = torch.zeros((4, N), **kw), torch.zeros((6, N), **kw)
+        buf2, counts = torch.empty((9, N), **kw), torch.zeros(2, **kw)
+        scratch = tdc.dc_segments(1, buf1.to(cuda), mode_sum, ovr, out_u,
+                                  buf2, counts)
+        tdc.dc_segments(2, want[2].to(cuda), mode_sum, ovr, out_c, None,
+                        counts, scratch)
+        for a, b in zip(want[:2] + want[3:], (out_u, buf2, out_c, counts)):
+            assert torch.equal(a, b.cpu()), name

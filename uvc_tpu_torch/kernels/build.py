@@ -98,13 +98,16 @@ def load():
                  [vp, ll, ci, ctypes.POINTER(ci), ci, vp, vp]),
                 (lib.uvc_dc_segments_unique,
                  [vp, ll, ci, ci, vp, vp, vp, vp, vp]),
-                (lib.uvc_dc_segments_groups, [vp, ll, ci, vp, vp, vp, vp])):
+                (lib.uvc_dc_segments_groups,
+                 [vp, ll, ci, vp, vp, vp, ci, vp])):
             fn.restype = ctypes.c_int
             fn.argtypes = args
         lib.uvc_error_string.restype = ctypes.c_char_p
         lib.uvc_error_string.argtypes = [ctypes.c_int]
         lib.uvc_dc_sort_scratch.restype = ll
         lib.uvc_dc_sort_scratch.argtypes = [ll, ci]
+        lib.uvc_dc_segments_scratch.restype = ll
+        lib.uvc_dc_segments_scratch.argtypes = [ll]
         lib.uvc_layout_size.restype = ctypes.c_longlong
         lib.uvc_layout_size.argtypes = []
         _LIB = lib

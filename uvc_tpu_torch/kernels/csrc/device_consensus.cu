@@ -56,13 +56,57 @@
 // CPU test (tests/test_torch_radix_sort.py) holds that run and the Python
 // plan to the plain version.
 //
-// dc_segments (uvc_dc_segments_unique, uvc_dc_segments_groups): over
-// sorted rows, a segment starts where the key columns change; a per-block
-// count of the starts (__syncthreads_count), a scan of the block counts in
-// one block, then each block ranks its starts (warp ballots) and the
-// thread at each start walks its segment, which is contiguous after the
-// sort, to reduce it.  Integer work only, so the results are exact; sums
-// wrap in int32 as the JAX program's do.
+// dc_segments (uvc_dc_segments_unique, uvc_dc_segments_groups) replaces
+// the program's segment reductions (uvc_tpu/ops/device_consensus.py:71-93,
+// stage 1: cumsum segment ids, segment_max/sum of the values and of the
+// keys; :105-125, stage 2: the same per (g, p, st) group, segment_min for
+// its first row).  Over sorted rows a segment is a run of ok rows with
+// equal keys; its start is the first.  Stage 1 writes each unique row at
+// its rank with its max or sum, and the stage-2 table; stage 2 writes each
+// group's first row with the group's total.  Integer work only, so the
+// results are exact; sums wrap in int32 as the JAX program's do.
+// Bound: memory traffic.  A row that is not ok joins no segment, so only
+// its flag must be read.  Stage 1 must read inval (N ints) and g, p, s and
+// v of the n_rows ok rows, and write 4 n_uniq + 9 N; stage 2 reads c_inv
+// (N) and g, p, st, s and v of its n_pos ok rows (the unique rows with
+// v > 0), and writes 6 n_grp: 4 (11 N + 4 n_rows + 4 n_uniq + 5 n_pos +
+// 6 n_grp) bytes a call.
+// Design, one pass over the keys per stage (seg_pass), against the costs
+// of a split into counting, a one-block scan of the counts, and ranking
+// with a walk of each segment:
+//   - launches: stage 1 runs seg_pass<1> and seg_tail, stage 2
+//     seg_pass<2>; one cudaMemsetAsync in stage 1 zeroes both stages'
+//     tile counters and status words (stage 2 zeroes its own half only
+//     when it is called without stage 1's scratch);
+//   - the scan runs across all blocks, a chained scan with decoupled
+//     look-back: tile ids from an atomic counter (a tile waits only on
+//     tiles that have started), each tile publishes its count, then its
+//     inclusive prefix, in one 64-bit status word (flag and value) with
+//     st.release, read with ld.acquire, one warp looking back 32 tiles at
+//     a time;
+//   - the keys are read once: a block takes a tile of SEG_TILE rows,
+//     SEG_ITEMS a thread in registers, each column one 16-byte load a
+//     thread (a warp reads 512 contiguous bytes), the rows next to a
+//     thread's by shuffles (global loads only at a warp's edge); flags,
+//     ranks and the reduce come from registers; a thread whose rows are
+//     none of them ok reads only their flags;
+//   - stage 1 writes each unique row's stage-2 row in the same store pass,
+//     so nothing is read back; seg_tail writes that table's rows beyond
+//     n_uniq, known only at the scan's end;
+//   - the reduce is a segmented suffix scan of v over the tile (in a
+//     thread, then shuffles over the warp, then over the warps), so the
+//     thread holding a start has its segment's result with every lane
+//     busy; a segment that runs past the tile's end is finished by the
+//     tile's last warp, 32 rows a step, coalesced.
+// Each start's output row is staged in shared memory at its rank in the
+// tile and written out by consecutive threads, a warp's 32 rows aligned
+// to 128 bytes of each column.  Tried on the H100 and not kept: tiles of
+// 512, 2,048 and 4,096 rows (none faster at both N = 2^20 and 2^22), a
+// block-wide look-back and relaxed loads or a back-off in its spin (no
+// gain), 16-byte stores of 4 rows a thread (slower).  The HD
+// helpers below build as host C++ too: a host driver runs the tiles in
+// order on one thread (the look-back a running prefix), held to the plain
+// version by tests/test_torch_segments.py.
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
 #endif
@@ -73,8 +117,14 @@
 
 namespace {
 
-constexpr int BLOCK = 1024;     // threads of a segment or scan block
+constexpr int BLOCK = 1024;     // threads of a scan block
 constexpr int MAX_COLS = 9;     // widest table: the stage-2 sort
+
+#ifdef __CUDACC__
+#define UNROLL _Pragma("unroll")
+#else
+#define UNROLL
+#endif
 
 // ---- the radix sort, shared with the host build --------------------------
 
@@ -221,6 +271,140 @@ HD unsigned warp_offsets(unsigned* whist, int d) {
 HD int stage_pos(const unsigned* whist, const unsigned* loc, int w,
                  unsigned d, unsigned rank) {
     return (int)(loc[d] + whist[w * RADIX + d] + rank);
+}
+
+// ---- the segment passes, shared with the host build -------------------------
+
+constexpr int SEG_THREADS = 256;                     // threads of a tile block
+constexpr int SEG_WARPS = SEG_THREADS / 32;
+constexpr int SEG_ITEMS = 4;                         // rows of a thread
+constexpr int SEG_TILE = SEG_THREADS * SEG_ITEMS;    // rows of a tile
+constexpr unsigned long long SEG_AGG = 1ull << 32;   // status: the tile's count
+constexpr unsigned long long SEG_PRE = 2ull << 32;   // status: its prefix
+
+HD long long seg_tiles(long long N) {
+    return (N + SEG_TILE - 1) / SEG_TILE;
+}
+
+// the scratch of a stage: the tile counter (8 bytes), a status word a tile
+HD long long seg_stage_bytes(long long N) {
+    return 8 + 8 * seg_tiles(N);
+}
+
+// the scratch of a call: stage 1's half, then stage 2's
+HD long long seg_scratch_bytes(long long N) {
+    return 2 * seg_stage_bytes(N);
+}
+
+// One row as a stage reads it: the invalid flag, the keys (g, p, k) and
+// the symbol and value.  Stage 1 (COLS1): inval 0, g 1, p 2, k = s 3,
+// v 5.  Stage 2 (COLS2): c_inv 0, g 1, p 2, k = st 3, s 6, v 8.
+struct SegRow {
+    int inv, g, p, k, s, v;
+};
+
+HD int seg_col_s(int stage) { return stage == 1 ? 3 : 6; }
+HD int seg_col_v(int stage) { return stage == 1 ? 5 : 8; }
+
+HD SegRow seg_none() { return SegRow{1, 0, 0, 0, 0, 0}; }  // beyond N
+
+// row i; of a row that is not ok only the flag is read (its keys and
+// value join no segment)
+HD SegRow seg_row(const int* buf, long long N, int stage, long long i) {
+    const int inv = buf[i];
+    if (inv) return SegRow{inv, 0, 0, 0, 0, 0};
+    return SegRow{inv, buf[N + i], buf[2 * N + i], buf[3 * N + i],
+                  buf[seg_col_s(stage) * N + i], buf[seg_col_v(stage) * N + i]};
+}
+
+// b continues a's segment
+HD bool seg_same(const SegRow& a, const SegRow& b) {
+    return a.inv == 0 && b.inv == 0 && a.g == b.g && a.p == b.p && a.k == b.k;
+}
+
+// A thread's start and end flags (bit k for its row k), given the row
+// before its first and the row after its last: a start is an ok row that
+// does not continue the row before; an end a row that the next one does
+// not continue (every row that is not ok is one).
+HD void seg_flags(const SegRow* r, const SegRow& prev, const SegRow& next,
+                  unsigned& start, unsigned& end) {
+    start = end = 0;
+    UNROLL
+    for (int k = 0; k < SEG_ITEMS; ++k) {
+        const SegRow& a = k ? r[k - 1] : prev;
+        const SegRow& b = k + 1 < SEG_ITEMS ? r[k + 1] : next;
+        if (r[k].inv == 0 && !seg_same(a, r[k])) start |= 1u << k;
+        if (!seg_same(r[k], b)) end |= 1u << k;
+    }
+}
+
+// the reduce: max, or a sum wrapping in int32
+HD int seg_op(int sum, int a, int b) {
+    return sum ? (int)((unsigned)a + (unsigned)b) : (a > b ? a : b);
+}
+
+HD int seg_identity(int sum) { return sum ? 0 : INT32_MIN; }
+
+// A suffix of the segmented reduce: v over the rows from one row on, up
+// to and including the first end (f = 1), or to the last row seen (f = 0).
+struct Seg {
+    int v, f;
+};
+
+// the suffix of the rows of ``near`` continued by the rows after them
+HD Seg seg_join(Seg near, Seg far, int sum) {
+    return near.f ? near : Seg{seg_op(sum, near.v, far.v), far.f};
+}
+
+// A thread's suffixes from ``carry`` (that of the rows after its last):
+// out[k] is row k's; returns row 0's, the thread's aggregate.
+HD Seg seg_suffix(const SegRow* r, unsigned end, Seg carry, int sum,
+                  Seg* out) {
+    UNROLL
+    for (int k = SEG_ITEMS - 1; k >= 0; --k) {
+        carry = (end >> k) & 1u ? Seg{r[k].v, 1}
+                                : Seg{seg_op(sum, r[k].v, carry.v), carry.f};
+        out[k] = carry;
+    }
+    return carry;
+}
+
+// Stage 1's unique row u (keys g, p, s; reduced value v) into out_u
+// [4][N] and its row of the stage-2 table buf2 [9][N] (COLS2).
+HD void seg_write_unique(int* out_u, int* buf2, long long N, long long u,
+                         int g, int p, int s, int v, int ovr) {
+    const int st = s >= 6;
+    out_u[u] = g;
+    out_u[N + u] = p;
+    out_u[2 * N + u] = s;
+    out_u[3 * N + u] = v;
+    buf2[u] = !(v > 0);
+    buf2[N + u] = g;
+    buf2[2 * N + u] = p;
+    buf2[3 * N + u] = st;
+    buf2[4 * N + u] = (ovr && s == 6 && st) ? 1 : 0;  // LINK_M
+    buf2[5 * N + u] = (int)(0u - (unsigned)v);         // -v, wrapping
+    buf2[6 * N + u] = s;
+    buf2[7 * N + u] = (int)u;
+    buf2[8 * N + u] = v;
+}
+
+// a row of the stage-2 table at or beyond n_uniq
+HD void seg_write_empty(int* buf2, long long N, long long i) {
+    buf2[i] = 1;
+    for (int a = 1; a < 9; ++a) buf2[a * N + i] = a == 7 ? (int)i : 0;
+}
+
+// Stage 2's consensus row gi: the group's first row (g, p, st, s, v) and
+// its total.
+HD void seg_write_group(int* out_c, long long N, long long gi, int g, int p,
+                        int st, int s, int v, int tot, int ovr) {
+    out_c[gi] = g;
+    out_c[N + gi] = p;
+    out_c[2 * N + gi] = st;
+    out_c[3 * N + gi] = s;
+    out_c[4 * N + gi] = v;
+    out_c[5 * N + gi] = (ovr && st == 1) ? v : tot;
 }
 
 #ifdef __CUDACC__
@@ -407,113 +591,246 @@ __global__ void gather_rows(const int* buf, long long N,
 
 // ---- segments --------------------------------------------------------------
 
-// Stage-1 rows: columns (inval, g, p, s, idx, v); a row is ok when inval is
-// 0, and a segment is a run of ok rows with equal (g, p, s).
-// Stage-2 rows: columns (c_inv, g, p, st, cls, negv, s, idx, v); a group is
-// a run of ok rows with equal (g, p, st).
-__device__ __forceinline__ bool seg_start(const int* buf, long long N,
-                                          long long i) {
-    if (buf[i] != 0) return false;               // not ok
-    if (i == 0 || buf[i - 1] != 0) return true;  // first ok row
-    for (int a = 1; a <= 3; ++a)                 // (g, p, s) or (g, p, st)
-        if (buf[a * N + i] != buf[a * N + i - 1]) return true;
-    return false;
+__device__ __forceinline__ void st_release(unsigned long long* p,
+                                           unsigned long long v) {
+    asm volatile("st.release.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v)
+                 : "memory");
 }
 
-__device__ __forceinline__ bool same_key(const int* buf, long long N,
-                                         long long i, long long j) {
-    if (buf[j] != 0) return false;
-    for (int a = 1; a <= 3; ++a)
-        if (buf[a * N + j] != buf[a * N + i]) return false;
-    return true;
+__device__ __forceinline__ unsigned long long ld_acquire(
+    const unsigned long long* p) {
+    unsigned long long v;
+    asm volatile("ld.acquire.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p)
+                 : "memory");
+    return v;
 }
 
-// blocks[b] = number of segment starts in block b
-__global__ void __launch_bounds__(BLOCK)
-seg_count(const int* buf, long long N, int* blocks) {
-    const long long i = (long long)blockIdx.x * BLOCK + threadIdx.x;
-    const int n = __syncthreads_count(seg_start(buf, N, i));
-    if (threadIdx.x == 0) blocks[blockIdx.x] = n;
+// x[0..4) = p[0..4): one 16-byte load (p is 16-byte aligned)
+__device__ __forceinline__ void load_items(const int* p, int* x) {
+    static_assert(SEG_ITEMS == 4, "one int4 load a column");
+    const int4 a = __ldg(reinterpret_cast<const int4*>(p));
+    x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
 }
 
-// exclusive scan of blocks[0..nb) in place, total into *total (one block)
-__global__ void __launch_bounds__(BLOCK)
-seg_scan(int* blocks, int nb, int* total) {
-    const int sum = block_scan(blocks, nb, 0);
-    if (threadIdx.x == 0) *total = sum;
+// row ``r`` of the lane ``delta`` away (down: higher lanes)
+__device__ __forceinline__ SegRow shfl_row(const SegRow& r, int delta,
+                                           bool down) {
+    auto f = [&](int x) {
+        return down ? __shfl_down_sync(FULL, x, delta)
+                    : __shfl_up_sync(FULL, x, delta);
+    };
+    return SegRow{f(r.inv), f(r.g), f(r.p), f(r.k), f(r.s), f(r.v)};
 }
 
-// this thread's rank among the block's segment starts, given its flag
-__device__ __forceinline__ int block_rank(bool flag) {
-    __shared__ int warp_cnt[BLOCK / 32];
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    const unsigned ball = __ballot_sync(0xffffffffu, flag);
-    if (lane == 0) warp_cnt[warp] = __popc(ball);
+// The prefix of tile ``tile``'s starts: warp-wide look-back over the
+// status words of the tiles before it, 32 at a time, nearest first; waits
+// until none of a window is unpublished, then sums up to the nearest
+// inclusive prefix.
+__device__ unsigned seg_lookback(const unsigned long long* status,
+                                 unsigned tile, int lane) {
+    unsigned run = 0;
+    for (long long j = (long long)tile - 1;; j -= 32) {
+        const long long mine = j - lane;
+        unsigned long long s;
+        do {
+            s = mine >= 0 ? ld_acquire(status + mine) : SEG_PRE;
+        } while (__any_sync(FULL, (s >> 32) == 0));
+        const unsigned pre = __ballot_sync(FULL, (s >> 32) == 2);
+        const int stop = pre ? __ffs(pre) - 1 : 31;
+        run += __reduce_add_sync(FULL, lane <= stop ? (unsigned)s : 0u);
+        if (pre) return run;
+    }
+}
+
+// Stage STAGE over the sorted table buf: one tile of SEG_TILE rows a
+// block (see the note at the head of the file).  Stage 1 writes the unique
+// rows into out [4][N] and their stage-2 rows into buf2, stage 2 the
+// consensus rows into out [6][N]; the last tile writes the count into
+// counts[STAGE - 1].  Dynamic shared memory: the staged output rows, 4
+// (stage 1) or 6 (stage 2) ints a row of the tile.
+template <int STAGE>
+__global__ void __launch_bounds__(SEG_THREADS)
+seg_pass(const int* __restrict__ buf, long long N, int mode_sum, int ovr,
+         unsigned* counter, unsigned long long* status, int* __restrict__ out,
+         int* __restrict__ buf2, int* __restrict__ counts) {
+    extern __shared__ int s_stage[];    // [cols][SEG_TILE]
+    __shared__ unsigned s_wcnt[SEG_WARPS];
+    __shared__ Seg s_wagg[SEG_WARPS];
+    __shared__ unsigned s_tile, s_prefix;
+    __shared__ int s_tail;
+    const int t = threadIdx.x, lane = t & 31, w = t >> 5;
+    const int sum = STAGE == 2 || mode_sum;
+    const int idn = seg_identity(sum);
+    if (t == 0) s_tile = atomicAdd(counter, 1u);
     __syncthreads();
-    int before = 0;
-    for (int w = 0; w < warp; ++w) before += warp_cnt[w];
-    return before + __popc(ball & ((1u << lane) - 1u));
+    const unsigned tile = s_tile;
+    const long long base = (long long)tile * SEG_TILE;
+    const long long r0 = base + (long long)t * SEG_ITEMS;
+
+    // the thread's rows, each column once; N is a multiple of 1,024, so a
+    // thread has all SEG_ITEMS rows or none.  Rows none of which is ok
+    // are read no further (see seg_row).
+    SegRow r[SEG_ITEMS];
+    int ok = 0;
+    if (r0 < N) {
+        int x[SEG_ITEMS];
+        load_items(buf + r0, x);
+        UNROLL for (int k = 0; k < SEG_ITEMS; ++k) {
+            r[k] = SegRow{x[k], 0, 0, 0, 0, 0};
+            ok |= x[k] == 0;
+        }
+    } else {
+        UNROLL for (int k = 0; k < SEG_ITEMS; ++k) r[k] = seg_none();
+    }
+    if (ok) {
+        int x[SEG_ITEMS];
+        load_items(buf + N + r0, x);
+        UNROLL for (int k = 0; k < SEG_ITEMS; ++k) r[k].g = x[k];
+        load_items(buf + 2 * N + r0, x);
+        UNROLL for (int k = 0; k < SEG_ITEMS; ++k) r[k].p = x[k];
+        load_items(buf + 3 * N + r0, x);
+        UNROLL for (int k = 0; k < SEG_ITEMS; ++k) r[k].k = r[k].s = x[k];
+        if (STAGE == 2) {
+            load_items(buf + 6 * N + r0, x);
+            UNROLL for (int k = 0; k < SEG_ITEMS; ++k) r[k].s = x[k];
+        }
+        load_items(buf + seg_col_v(STAGE) * N + r0, x);
+        UNROLL for (int k = 0; k < SEG_ITEMS; ++k) r[k].v = x[k];
+    }
+    SegRow prev = shfl_row(r[SEG_ITEMS - 1], 1, false);
+    SegRow next = shfl_row(r[0], 1, true);
+    if (lane == 0)
+        prev = r0 > 0 && r0 < N ? seg_row(buf, N, STAGE, r0 - 1) : seg_none();
+    if (lane == 31)
+        next = r0 + SEG_ITEMS < N ? seg_row(buf, N, STAGE, r0 + SEG_ITEMS)
+                                  : seg_none();
+    unsigned start, end;
+    seg_flags(r, prev, next, start, end);
+
+    // the starts' counts, scanned over the warp; the suffixes' aggregates,
+    // scanned from the right over the warp
+    const unsigned cnt = __popc(start);
+    unsigned x = cnt;
+    Seg red[SEG_ITEMS];
+    Seg y = seg_suffix(r, end, Seg{idn, 0}, sum, red);
+    UNROLL
+    for (int o = 1; o < 32; o <<= 1) {
+        const unsigned xc = __shfl_up_sync(FULL, x, o);
+        const int yv = __shfl_down_sync(FULL, y.v, o);
+        const int yf = __shfl_down_sync(FULL, y.f, o);
+        if (lane >= o) x += xc;
+        if (lane + o < 32 && !y.f) y = Seg{seg_op(sum, y.v, yv), yf};
+    }
+    if (lane == 31) s_wcnt[w] = x;
+    if (lane == 0) s_wagg[w] = y;
+    __syncthreads();
+    unsigned before = 0, total = 0;
+    UNROLL
+    for (int i = 0; i < SEG_WARPS; ++i) {
+        before += i < w ? s_wcnt[i] : 0u;
+        total += s_wcnt[i];
+    }
+    Seg carry{idn, 0};
+    for (int i = SEG_WARPS - 1; i > w; --i)
+        carry = seg_join(s_wagg[i], carry, sum);
+    const Seg nx{__shfl_down_sync(FULL, y.v, 1),
+                 __shfl_down_sync(FULL, y.f, 1)};
+    if (lane < 31) carry = seg_join(nx, carry, sum);
+    seg_suffix(r, end, carry, sum, red);
+
+    if (w == 0) {
+        // publish the tile's count, look back, publish its prefix
+        if (lane == 0) st_release(status + tile, (tile ? SEG_AGG : SEG_PRE)
+                                                     | total);
+        const unsigned pre = tile ? seg_lookback(status, tile, lane) : 0u;
+        if (lane == 0) {
+            if (tile) st_release(status + tile, SEG_PRE | (pre + total));
+            s_prefix = pre;
+            if (tile == gridDim.x - 1) counts[STAGE - 1] = (int)(pre + total);
+        }
+    } else if (w == SEG_WARPS - 1) {
+        // the segment at the tile's last row runs on into the next tile:
+        // when it starts in this tile, reduce the rest of it, 32 rows a step
+        const int cont = __shfl_sync(FULL, !((end >> (SEG_ITEMS - 1)) & 1u),
+                                     31);
+        int tail = idn;
+        if (cont && total) {
+            const SegRow& last = r[SEG_ITEMS - 1];  // lane 31's, an ok row
+            const SegRow key{0, __shfl_sync(FULL, last.g, 31),
+                             __shfl_sync(FULL, last.p, 31),
+                             __shfl_sync(FULL, last.k, 31), 0, 0};
+            for (long long j0 = base + SEG_TILE;; j0 += 32) {
+                const long long j = j0 + lane;
+                int v = idn;
+                bool in = false;
+                if (j < N) {
+                    const SegRow q = seg_row(buf, N, STAGE, j);
+                    in = seg_same(key, q);
+                    v = q.v;
+                }
+                const unsigned b = __ballot_sync(FULL, in);
+                const int n = b == FULL ? 32 : __ffs(~b) - 1;
+                if (lane >= n) v = idn;
+                tail = seg_op(sum, tail,
+                              sum ? (int)__reduce_add_sync(FULL, (unsigned)v)
+                                  : __reduce_max_sync(FULL, v));
+                if (n < 32) break;
+            }
+        }
+        if (lane == 0) s_tail = tail;
+    }
+    __syncthreads();
+
+    // stage each start's output row at its rank in the tile, then write
+    // the tile's rows out in order
+    const unsigned prefix = s_prefix;
+    const int tail = s_tail;
+    unsigned lr = x - cnt + before;
+    UNROLL
+    for (int k = 0; k < SEG_ITEMS; ++k) {
+        if (!((start >> k) & 1u)) continue;
+        const int v = red[k].f ? red[k].v : seg_op(sum, red[k].v, tail);
+        int* st = s_stage + lr++;
+        st[0] = r[k].g;
+        st[SEG_TILE] = r[k].p;
+        st[2 * SEG_TILE] = r[k].k;
+        st[3 * SEG_TILE] = v;
+        if (STAGE == 2) {
+            st[4 * SEG_TILE] = r[k].s;
+            st[5 * SEG_TILE] = r[k].v;
+        }
+    }
+    __syncthreads();
+    // a warp's 32 rows of a column start at a multiple of 32 in it, so
+    // each store fills whole 32-byte sectors
+    for (int j = t - (int)(prefix & 31u); j < (int)total; j += SEG_THREADS) {
+        if (j < 0) continue;
+        const int* st = s_stage + j;
+        if (STAGE == 1)
+            seg_write_unique(out, buf2, N, prefix + j, st[0], st[SEG_TILE],
+                             st[2 * SEG_TILE], st[3 * SEG_TILE], ovr);
+        else
+            seg_write_group(out, N, prefix + j, st[0], st[SEG_TILE],
+                            st[2 * SEG_TILE], st[4 * SEG_TILE],
+                            st[5 * SEG_TILE], st[3 * SEG_TILE], ovr);
+    }
 }
 
-// stage 1: each unique (g, p, s) row with its max or sum of v, at its rank
-__global__ void __launch_bounds__(BLOCK)
-seg_unique(const int* buf, long long N, int mode_sum, const int* blocks,
-           int* out_u) {
-    const long long i = (long long)blockIdx.x * BLOCK + threadIdx.x;
-    const bool flag = seg_start(buf, N, i);
-    const long long u = blocks[blockIdx.x] + block_rank(flag);
-    if (!flag) return;
-    const int* v = buf + 5 * N;
-    int red = v[i];
-    for (long long j = i + 1; j < N && same_key(buf, N, i, j); ++j)
-        red = mode_sum ? (int)((unsigned)red + (unsigned)v[j])
-                       : (v[j] > red ? v[j] : red);
-    out_u[u] = buf[1 * N + i];
-    out_u[N + u] = buf[2 * N + i];
-    out_u[2 * N + u] = buf[3 * N + i];
-    out_u[3 * N + u] = red;
-}
-
-// the stage-2 sort's table from the unique rows (zeros beyond n_uniq)
-__global__ void keys2(const int* out_u, long long N, int ovr,
-                      const int* counts, int* buf2) {
-    const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= N) return;
-    const bool uvalid = i < counts[0];
-    const int g = out_u[i], p = out_u[N + i], s = out_u[2 * N + i];
-    const int v = out_u[3 * N + i];
-    const int st = s >= 6;
-    const bool cvalid = uvalid && v > 0;
-    buf2[i] = !cvalid;
-    buf2[N + i] = g;
-    buf2[2 * N + i] = p;
-    buf2[3 * N + i] = st;
-    buf2[4 * N + i] = (ovr && s == 6 && st == 1) ? 1 : 0;  // LINK_M
-    buf2[5 * N + i] = (int)(0u - (unsigned)v);              // -v, wrapping
-    buf2[6 * N + i] = s;
-    buf2[7 * N + i] = (int)i;
-    buf2[8 * N + i] = v;
-}
-
-// stage 2: each group's first row (the consensus) and its total
-__global__ void __launch_bounds__(BLOCK)
-seg_groups(const int* buf, long long N, int ovr, const int* blocks,
-           int* out_c) {
-    const long long i = (long long)blockIdx.x * BLOCK + threadIdx.x;
-    const bool flag = seg_start(buf, N, i);
-    const long long gi = blocks[blockIdx.x] + block_rank(flag);
-    if (!flag) return;
-    const int* v = buf + 8 * N;
-    unsigned tot = (unsigned)v[i];
-    for (long long j = i + 1; j < N && same_key(buf, N, i, j); ++j)
-        tot += (unsigned)v[j];
-    const int st = buf[3 * N + i];
-    out_c[gi] = buf[N + i];                 // group
-    out_c[N + gi] = buf[2 * N + i];         // pos
-    out_c[2 * N + gi] = st;                 // symbol type
-    out_c[3 * N + gi] = buf[6 * N + i];     // consensus symbol
-    out_c[4 * N + gi] = v[i];               // its count
-    out_c[5 * N + gi] = (ovr && st == 1) ? v[i] : (int)tot;
+// The stage-2 table's rows [n_uniq, N) (n_uniq = counts[0]), 4 rows a
+// thread.
+__global__ void seg_tail(long long N, const int* counts, int* buf2) {
+    const long long i = ((long long)blockIdx.x * blockDim.x + threadIdx.x) * 4;
+    const long long n = counts[0];
+    if (i >= N || i + 4 <= n) return;
+    if (i < n) {
+        for (long long k = n; k < i + 4; ++k) seg_write_empty(buf2, N, k);
+        return;
+    }
+    const int4 one{1, 1, 1, 1}, zero{0, 0, 0, 0};
+    const int4 idx{(int)i, (int)i + 1, (int)i + 2, (int)i + 3};
+    for (int a = 0; a < 9; ++a)
+        *reinterpret_cast<int4*>(buf2 + a * N + i) =
+            a == 0 ? one : a == 7 ? idx : zero;
 }
 
 #endif  // __CUDACC__
@@ -522,6 +839,10 @@ seg_groups(const int* buf, long long N, int ovr, const int* blocks,
 
 extern "C" long long uvc_dc_sort_scratch(long long N, int A) {
     return scratch_bytes(N, A);
+}
+
+extern "C" long long uvc_dc_segments_scratch(long long N) {
+    return seg_scratch_bytes(N);
 }
 
 #ifdef __CUDACC__
@@ -589,44 +910,71 @@ extern "C" int uvc_dc_sort(void* buf, long long N, int A, const int* plan,
     return (int)cudaGetLastError();
 }
 
+namespace {
+
+// One stage over the sorted table buf: zero the ``zero`` bytes of the
+// call's scratch from the start of stage 1's half (0: none), then
+// seg_pass<STAGE> over the tiles with the stage's half (its tile counter
+// and status words).  Dynamic shared memory stays under the 48 KB a
+// launch may take without opting in.
+template <int STAGE>
+int seg_launch(const void* buf, long long N, int mode_sum, int ovr,
+               void* out, void* buf2, void* counts, void* scratch,
+               long long zero, void* stream) {
+    if (N < 1024 || N % 1024 || N > MAX_ROWS
+        || reinterpret_cast<uintptr_t>(scratch) % 8)
+        return (int)cudaErrorInvalidValue;
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const int smem = (STAGE == 1 ? 4 : 6) * SEG_TILE * (int)sizeof(int);
+    static_assert(6 * SEG_TILE * sizeof(int) <= 48 * 1024, "opt in");
+    char* half = static_cast<char*>(scratch)
+                 + (STAGE == 1 ? 0 : seg_stage_bytes(N));
+    if (zero) {
+        const cudaError_t e = cudaMemsetAsync(
+            STAGE == 1 ? scratch : half, 0, (size_t)zero, st);
+        if (e != cudaSuccess) return (int)e;
+    }
+    seg_pass<STAGE><<<(unsigned)seg_tiles(N), SEG_THREADS, smem, st>>>(
+        static_cast<const int*>(buf), N, mode_sum, ovr,
+        reinterpret_cast<unsigned*>(half),
+        reinterpret_cast<unsigned long long*>(half + 8),
+        static_cast<int*>(out), static_cast<int*>(buf2),
+        static_cast<int*>(counts));
+    return (int)cudaGetLastError();
+}
+
+}  // namespace
+
 // Stage 1 over the sorted table buf1[6][N]: the unique rows into
 // out_u[4][N] (zeroed by the caller), n_uniq into counts[0], and the
-// stage-2 table into buf2[9][N].  scratch holds N / 1024 ints.
+// stage-2 table into buf2[9][N].  scratch holds
+// uvc_dc_segments_scratch(N) bytes, both stages' halves, which one memset
+// zeroes here.
 extern "C" int uvc_dc_segments_unique(const void* buf1, long long N,
                                       int mode_sum, int ovr, void* out_u,
                                       void* buf2, void* counts, void* scratch,
                                       void* stream) {
-    if (N < BLOCK || N % BLOCK) return (int)cudaErrorInvalidValue;
-    cudaStream_t st = static_cast<cudaStream_t>(stream);
-    const int* b = static_cast<const int*>(buf1);
-    int* blocks = static_cast<int*>(scratch);
-    int* cnt = static_cast<int*>(counts);
-    const int nb = (int)(N / BLOCK);
-    seg_count<<<nb, BLOCK, 0, st>>>(b, N, blocks);
-    seg_scan<<<1, BLOCK, 0, st>>>(blocks, nb, cnt);
-    seg_unique<<<nb, BLOCK, 0, st>>>(b, N, mode_sum, blocks,
-                                     static_cast<int*>(out_u));
-    keys2<<<(unsigned)((N + 255) / 256), 256, 0, st>>>(
-        static_cast<const int*>(out_u), N, ovr, cnt, static_cast<int*>(buf2));
+    const int e = seg_launch<1>(buf1, N, mode_sum, ovr, out_u, buf2, counts,
+                                scratch, seg_scratch_bytes(N), stream);
+    if (e != 0) return e;
+    seg_tail<<<(unsigned)(N / 1024), 256, 0,
+               static_cast<cudaStream_t>(stream)>>>(
+        N, static_cast<const int*>(counts), static_cast<int*>(buf2));
     return (int)cudaGetLastError();
 }
 
 // Stage 2 over the sorted table buf2[9][N]: the consensus rows
 // (group, pos, st, con_sym, con_cnt, tot) into out_c[6][N] (zeroed by the
-// caller) and n_grp into counts[1].  scratch holds N / 1024 ints.
+// caller) and n_grp into counts[1].  scratch holds
+// uvc_dc_segments_scratch(N) bytes; its stage-2 half is zeroed here unless
+// ``zeroed`` says that stage 1 of the same call zeroed it and no stage 2
+// has used it since.
 extern "C" int uvc_dc_segments_groups(const void* buf2, long long N, int ovr,
                                       void* out_c, void* counts,
-                                      void* scratch, void* stream) {
-    if (N < BLOCK || N % BLOCK) return (int)cudaErrorInvalidValue;
-    cudaStream_t st = static_cast<cudaStream_t>(stream);
-    const int* b = static_cast<const int*>(buf2);
-    int* blocks = static_cast<int*>(scratch);
-    const int nb = (int)(N / BLOCK);
-    seg_count<<<nb, BLOCK, 0, st>>>(b, N, blocks);
-    seg_scan<<<1, BLOCK, 0, st>>>(blocks, nb, static_cast<int*>(counts) + 1);
-    seg_groups<<<nb, BLOCK, 0, st>>>(b, N, ovr, blocks,
-                                     static_cast<int*>(out_c));
-    return (int)cudaGetLastError();
+                                      void* scratch, int zeroed,
+                                      void* stream) {
+    return seg_launch<2>(buf2, N, 1, ovr, out_c, nullptr, counts, scratch,
+                         zeroed ? 0 : seg_stage_bytes(N), stream);
 }
 
 #else  // ---- host build: the same passes on one thread ---------------------
@@ -757,6 +1105,73 @@ extern "C" int uvc_dc_sort_host(int* buf, long long N, int A,
         for (long long i = 0; i < N; ++i)
             s.table[a * N + i] = buf[a * N + s.idx[cur][i]];
     for (long long i = 0; i < (long long)A * N; ++i) buf[i] = s.table[i];
+    return 0;
+}
+
+// dc_segments' stage on the host, with tiles of ``tile`` rows (a multiple
+// of SEG_ITEMS) run in order: a tile's threads in turn (flags, then the
+// suffixes' aggregates, joined from the right as the block's scan joins
+// them), the walk of a segment past the tile's end, the look-back as a
+// running prefix.  Stage 1 also writes buf2's rows beyond n_uniq, as
+// seg_tail does.  0, or -1 for arguments the kernels do not take.
+extern "C" int uvc_dc_segments_host(int stage, const int* buf, long long N,
+                                    int mode_sum, int ovr, int tile, int* out,
+                                    int* buf2, int* counts) {
+    if ((stage != 1 && stage != 2) || N < 1024 || N % 1024
+        || tile < SEG_ITEMS || tile % SEG_ITEMS)
+        return -1;
+    const int sum = stage == 2 || mode_sum;
+    const int idn = seg_identity(sum);
+    const int threads = tile / SEG_ITEMS;
+    auto row = [&](long long i) {
+        return i >= 0 && i < N ? seg_row(buf, N, stage, i) : seg_none();
+    };
+    std::vector<SegRow> r(tile);
+    std::vector<unsigned> start(threads), end(threads);
+    std::vector<Seg> agg(threads), red(tile);
+    long long prefix = 0;
+    for (long long base = 0; base < N; base += tile) {
+        unsigned total = 0;
+        for (int t = 0; t < threads; ++t) {
+            const long long r0 = base + (long long)t * SEG_ITEMS;
+            SegRow* rt = &r[t * SEG_ITEMS];
+            for (int k = 0; k < SEG_ITEMS; ++k) rt[k] = row(r0 + k);
+            seg_flags(rt, row(r0 - 1), row(r0 + SEG_ITEMS), start[t], end[t]);
+            total += popc32(start[t]);
+            agg[t] = seg_suffix(rt, end[t], Seg{idn, 0}, sum,
+                                &red[t * SEG_ITEMS]);
+        }
+        int tail = idn;
+        if (!((end[threads - 1] >> (SEG_ITEMS - 1)) & 1u) && total) {
+            const SegRow& last = r[tile - 1];
+            for (long long j = base + tile; j < N; ++j) {
+                const SegRow q = seg_row(buf, N, stage, j);
+                if (!seg_same(last, q)) break;
+                tail = seg_op(sum, tail, q.v);
+            }
+        }
+        Seg carry{idn, 0};
+        long long u = prefix;
+        for (int t = threads - 1; t >= 0; --t) {
+            const Seg a = agg[t];
+            seg_suffix(&r[t * SEG_ITEMS], end[t], carry, sum,
+                       &red[t * SEG_ITEMS]);
+            carry = seg_join(a, carry, sum);
+        }
+        for (int i = 0; i < tile; ++i) {
+            if (!((start[i / SEG_ITEMS] >> (i % SEG_ITEMS)) & 1u)) continue;
+            const SegRow& q = r[i];
+            const int v = red[i].f ? red[i].v : seg_op(sum, red[i].v, tail);
+            if (stage == 1)
+                seg_write_unique(out, buf2, N, u++, q.g, q.p, q.k, v, ovr);
+            else
+                seg_write_group(out, N, u++, q.g, q.p, q.k, q.s, q.v, v, ovr);
+        }
+        prefix += total;
+    }
+    counts[stage - 1] = (int)prefix;
+    if (stage == 1)
+        for (long long i = prefix; i < N; ++i) seg_write_empty(buf2, N, i);
     return 0;
 }
 

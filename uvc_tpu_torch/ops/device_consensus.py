@@ -53,7 +53,6 @@ _LOCK = threading.Lock()
 COLS1 = ("inval", "g", "p", "s", "idx", "v")
 COLS2 = ("c_inv", "g", "p", "st", "cls", "negv", "s", "idx", "v")
 NKEYS1, NKEYS2 = 4, 7
-SEG_BLOCK = 1024  # rows per block of the segment kernels
 
 
 def _bucket(n):
@@ -232,14 +231,19 @@ def dc_segments_plain(stage, buf, mode_sum, ovr, out, buf2, counts):
     counts[1] = n_grp
 
 
-def dc_segments(stage, buf, mode_sum, ovr, out, buf2, counts):
+def dc_segments(stage, buf, mode_sum, ovr, out, buf2, counts, scratch=None):
     """Stage 1: the unique rows of the sorted stage-1 table ``buf`` [6, N]
     into ``out`` [4, N] (ug, up, us, uv; zeros beyond n_uniq), n_uniq into
     ``counts[0]`` and the stage-2 table into ``buf2`` [9, N].  Stage 2:
     the consensus rows of the sorted stage-2 table ``buf`` into ``out``
     [6, N] (group, pos, st, con_sym, con_cnt, tot; zeros beyond n_grp) and
     n_grp into ``counts[1]``.  ``out`` comes zeroed.  The kernel on a CUDA
-    tensor, the plain version on a CPU one."""
+    tensor, the plain version on a CPU one.
+
+    Returns the kernel's scratch (None on the CPU).  Stage 1 zeroes both
+    stages' halves of it, so a stage 2 of the same N handed stage 1's
+    ``scratch`` launches no memset of its own; hand it to one stage 2
+    only, since a stage leaves its half used."""
     if stage not in (1, 2):
         raise ValueError(f"dc_segments: no stage {stage}")
     cols = COLS1 if stage == 1 else COLS2
@@ -261,8 +265,14 @@ def dc_segments(stage, buf, mode_sum, ovr, out, buf2, counts):
                                  counts)
     from ..kernels import build
     lib = build.load()
-    scratch = torch.empty(N // SEG_BLOCK, dtype=torch.int32,
-                          device=buf.device)
+    nbytes = lib.uvc_dc_segments_scratch(N)
+    zeroed = scratch is not None and stage == 2
+    if scratch is None:
+        scratch = torch.empty(nbytes, dtype=torch.uint8, device=buf.device)
+    elif (scratch.dtype != torch.uint8 or tuple(scratch.shape) != (nbytes,)
+          or scratch.device != buf.device):
+        raise ValueError(f"dc_segments: scratch must be stage 1's uint8 "
+                         f"[{nbytes}] on {buf.device}")
     stream = torch.cuda.current_stream(buf.device).cuda_stream
     with torch.cuda.device(buf.device):
         if stage == 1:
@@ -273,9 +283,10 @@ def dc_segments(stage, buf, mode_sum, ovr, out, buf2, counts):
         else:
             rc = lib.uvc_dc_segments_groups(
                 buf.data_ptr(), N, int(ovr), out.data_ptr(),
-                counts.data_ptr(), scratch.data_ptr(), stream)
+                counts.data_ptr(), scratch.data_ptr(), int(zeroed), stream)
     kernels.check(lib, "dc_segments", rc)
     kernels.count("dc_segments")
+    return scratch
 
 
 # ---- the program ----------------------------------------------------------------
@@ -304,9 +315,11 @@ def reduce_consensus(buf1, mode, link_m_overridden):
     counts = torch.zeros(2, **kw)
     mode_sum = mode != "max"
     dc_sort(buf1, NKEYS1)
-    dc_segments(1, buf1, mode_sum, link_m_overridden, out_u, buf2, counts)
+    scratch = dc_segments(1, buf1, mode_sum, link_m_overridden, out_u, buf2,
+                          counts)
     dc_sort(buf2, NKEYS2)
-    dc_segments(2, buf2, mode_sum, link_m_overridden, out_c, None, counts)
+    dc_segments(2, buf2, mode_sum, link_m_overridden, out_c, None, counts,
+                scratch)
     return out_u, out_c, counts
 
 
