@@ -112,6 +112,18 @@ Phases, each of which raises on failure:
    UMI families of 1-8 fragments (device_chain.umi_variant: plain,
    rescue_add 4, fam_flag 0x2) on the card, held array for array to the
    plain and native chains: the family merge's k-way path.
+17. pass C on the card (pileup/device_pass_c.py), run after phase 16 on
+   the bench job: one uvc1 run recording each region's pass C arguments
+   and the family chain the card ran on pass C's columns; per region the
+   kernel's planes and aDP4 held entry for entry to the plain version's,
+   the route's result to the native pass's, and the chain's arrays to the
+   chain run on the native pass's bg and aDP4 (0 differing entries each);
+   the route's host wall (staging, upload, launches, readback; median of
+   5), the kernels' device time (torch.profiler), their bound in bytes
+   (``pass_c_bounds``) and the share reached, the plain version's and
+   the native pass's wall.  Phases 4 and 5 also require pass C on the
+   card in every region (golden_umi_duplex too), and phases 5 and 15 its
+   two launches a region.
 
 Phase 9 also times the two sorts' library route (``library_sort``: a
 stable torch.sort of each packed 64-bit key word, then one gather), held
@@ -406,10 +418,15 @@ def phase_goldens(d):
             print(f"phase 4 {name} {regime}: {len(errs)} divergences; body "
                   f"byte-identical to the golden: {same}; family chain on "
                   f"the card in {stats['families_device']} of "
-                  f"{stats['regions']} regions")
+                  f"{stats['regions']} regions, pass C in "
+                  f"{stats['pass_c_device']}")
             if errs:
                 raise AssertionError(f"{name} {regime}:\n"
                                      + "\n".join(errs[:30]))
+            if stats["pass_c_device"] != stats["regions"]:
+                raise AssertionError(f"{name}: pass C on the card in "
+                                     f"{stats['pass_c_device']} of "
+                                     f"{stats['regions']} regions")
             want = 0 if name == "golden_umi_duplex" else stats["regions"]
             if stats["families_device"] != want:
                 raise AssertionError(f"{name}: the family chain on the card "
@@ -426,6 +443,7 @@ def phase_main_path(d):
     """Phase 5: the bench workload through uvc1 on the card, f32."""
     from uvc_tpu_torch import goldens, kernels
     from uvc_tpu_torch.family.device_chain import CHAIN_LAUNCHES
+    from uvc_tpu_torch.pileup.device_pass_c import PASS_C_LAUNCHES
     t0 = time.time()
     fa, bam = goldens.build_bench_input(d)
     print(f"phase 5: bench BAM built in {time.time() - t0:.1f} s")
@@ -449,6 +467,7 @@ def phase_main_path(d):
         raise AssertionError(f"{stats['rows']} rows in {stats['requests']} "
                              f"requests: not {MAIN_ROWS} rows a request")
     device_regions = sum(st["families_device"] for _, st in runs)
+    pass_c_regions = sum(st["pass_c_device"] for _, st in runs)
     print(f"phase 5: {stats['reads']} reads at -t {nt}, 3 runs in "
           f"{' '.join(f'{w:.3f}' for w in walls)} s; best "
           f"{stats['reads'] / wall:.1f} reads/s; {stats['records']} records;"
@@ -457,21 +476,28 @@ def phase_main_path(d):
           f"emit={stats['emit']:.3f}; {stats['requests']} model requests of "
           f"{stats['rows']} rows in all per run; the family chain on the "
           f"card in {stats['families_device']} of {stats['regions']} "
-          f"regions; launches {launches} over "
+          f"regions, pass C in {stats['pass_c_device']}; launches "
+          f"{launches} over "
           f"{requests} requests; native host libraries {stats['native']}")
     if (requests < 1
             or any(launches[k] != requests
                    for k in ("capitals_vq", "dpv", "qual_tail"))
             or any(launches[k] != v * device_regions
                    for k, v in CHAIN_LAUNCHES.items())
+            or any(launches[k] != v * pass_c_regions
+                   for k, v in PASS_C_LAUNCHES.items())
             or any(v for k, v in launches.items()
                    if k not in ("capitals_vq", "dpv", "qual_tail")
-                   and k not in CHAIN_LAUNCHES)):
+                   and k not in CHAIN_LAUNCHES
+                   and k not in PASS_C_LAUNCHES)):
         raise AssertionError(f"launches {launches} != {requests} model "
                              "requests: the main path skipped a kernel")
     if any(st["families_device"] != st["regions"] for _, st in runs):
         raise AssertionError("the main path kept the family chain on the "
                              "host in a region")
+    if any(st["pass_c_device"] != st["regions"] for _, st in runs):
+        raise AssertionError("the main path kept pass C on the host in a "
+                             "region")
     ref_out = os.path.join(d, "bench.cpu.vcf.gz")
     t0 = time.time()
     run_cli(["-f", fa, "-t", str(nt), bam, "-o", ref_out, "--device", "cpu",
@@ -514,15 +540,29 @@ def chain_bounds(sizes, counts):
         + 784 * P + 1792 * P + 20 * n_m2}
 
 
+def host_chain_input(ci, pass_c):
+    """``ci`` with bg and aDP4 on the host: from the planes of the pass C
+    launch the chain read them from (None: ``ci`` as it is)."""
+    import dataclasses
+    from uvc_tpu_torch.pileup import device_pass_c as dp
+    if pass_c is None:
+        return ci
+    info, bg, _, _ = dp.host_planes(*dp.take(pass_c, pass_c["back"]), ci.P)
+    return dataclasses.replace(
+        ci, bg=bg, aDP4=info.aDPff + info.aDPfr + info.aDPrf + info.aDPrr)
+
+
 def chain_inputs(argv):
-    """The ChainInput of every region of a uvc1 run of ``argv``."""
+    """The ChainInput of every region of a uvc1 run of ``argv``, bg and
+    aDP4 on the host."""
     from uvc_tpu_torch.family import device_chain as dc
     cis = []
     real = dc.run
 
-    def rec(ci, device):
-        cis.append(ci)
-        return real(ci, device)
+    def rec(ci, device, pass_c=None):
+        out = real(ci, device, pass_c)
+        cis.append(host_chain_input(ci, pass_c))
+        return out
 
     dc.run = rec
     try:
@@ -631,6 +671,148 @@ def phase_family_chain(d, reps=5):
         row["share"] = {k: row["bound_ms"][k] / ms[k] for k in bounds
                         if ms.get(k)}
         print(f"phase 16 region {i}: {json.dumps(row)}")
+        out.append(row)
+    return out
+
+
+def pass_c_bounds(sizes):
+    """Bytes pass C must move at least: each event's 18 staged bytes and
+    each read's row (N_RF + 6 int32) read once, the thresholds, baq and
+    baq2 (N_TH + 2 int32 a position) read once, the planes (34 int32 and 5
+    int64 a (pos, sym)) and aDP4 (int64) written once."""
+    from uvc_tpu_torch.ops.native_rowpile import N_RF, N_TH
+    n, R, P = sizes["n"], sizes["R"], sizes["P"]
+    return (18 * n + 4 * (N_RF + 6) * R + 4 * (N_TH + 2) * P
+            + (4 * 34 + 8 * 5 + 8) * P * 14)
+
+
+def _differing(a, b):
+    """Entries in which two arrays differ (all of them where the shapes
+    or dtypes differ)."""
+    import numpy as np
+    a, b = np.asarray(a), np.asarray(b)
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return max(a.size, b.size)
+    return int((a != b).sum())
+
+
+def pass_c_differing(want, got):
+    """Differing entries of two pass C results (info, bg, a1, a2)."""
+    from uvc_tpu_torch.pileup import engine_bq
+    n = sum(_differing(getattr(want[0], nm), getattr(got[0], nm))
+            for nm in engine_bq.SegInfo.names)
+    return n + sum(_differing(a, b) for a, b in zip(want[1:], got[1:]))
+
+
+def phase_pass_c(d, reps=5):
+    """Phase 17: pass C on the card (pileup/device_pass_c.py) on the bench
+    job's regions (phase 5's input in ``d``).  One uvc1 run on the card
+    records each region's pass C arguments and the chain's input and
+    output where the chain read pass C's columns; per region: the
+    kernel's planes and aDP4 against the plain version's, the route's
+    result against the native pass's, the chain's arrays against the
+    chain run on the native pass's bg and aDP4 (differing entries: 0
+    each), the route's host wall (median of ``reps``), the kernels' device
+    time (torch.profiler, mean over ``reps``), their bound in bytes and the
+    share reached, the plain version's and the native pass's wall."""
+    import dataclasses
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from uvc_tpu_torch.family import device_chain as dc
+    from uvc_tpu_torch.kernels.bounds import HBM_BYTES_PER_S
+    from uvc_tpu_torch.pileup import device_pass_c as dp
+    from uvc_tpu_torch.pileup import engine_bq
+    fa, bam = os.path.join(d, "bench.fa"), os.path.join(d, "bench.bam")
+    args_of, chains = [], []
+    real_route, real_run = dp.route, dc.run
+
+    def rec_route(*args):
+        pc = real_route(*args)
+        args_of.append((args, pc.route))
+        return pc
+
+    def rec_run(ci, device, pass_c=None):
+        out = real_run(ci, device, pass_c)
+        chains.append((ci, pass_c is not None, out))
+        return out
+
+    dp.route, dc.run = rec_route, rec_run
+    try:
+        run_cli(["-f", fa, "-t", "4", bam, "-o", os.path.join(
+            d, "bench.pass_c.vcf.gz"), "--device", "cuda", "--model-regime",
+            "f64"])
+    finally:
+        dp.route, dc.run = real_route, real_run
+    if len(args_of) != 4 or any(r != "device" for _, r in args_of):
+        raise AssertionError(f"pass C routes {[r for _, r in args_of]}: "
+                             "not the card in the bench job's 4 regions")
+    cuda, out = torch.device("cuda", 0), []
+    for i, (args, _) in enumerate(args_of):
+        t0 = time.time()
+        st = dp.stage(*args)
+        err, (p_out, p_big, p_adp4) = dp.scatter_plain(
+            *st, dp.params(st[0], args[7]))
+        plain_s = time.time() - t0
+        t0 = time.time()
+        native = engine_bq.pass_c_scatter(*args)
+        native_s = time.time() - t0
+        run_ = dp.launch(*args, cuda, sync_each=True)
+        k_out, k_big = dp.take(run_, dp.readback(run_))
+        o = run_["offs"][dp.SLOT["adp4"]]
+        k_adp4 = run_["dev"][o:o + 8 * len(p_adp4)].view(torch.int64).cpu()
+        walls = []
+        for _ in range(reps):
+            t0 = time.time()
+            got = dp.result(dp.PassC(args, "device",
+                                     run=dp.launch(*args, cuda)))
+            walls.append(time.time() - t0)
+        diff = dict(plain=err + _differing(p_out.numpy(), k_out)
+                    + _differing(p_big.numpy(), k_big)
+                    + _differing(p_adp4.numpy(), k_adp4.numpy()),
+                    native=pass_c_differing(native, got))
+        chain = [(ci, o_) for ci, shared, o_ in chains
+                 if shared and ci.pos is args[0].pos]
+        if len(chain) != 1 or chain[0][1] is None:
+            raise AssertionError(f"region {i}: the chain did not run on "
+                                 "pass C's columns")
+        ci, got_chain = chain[0]
+        info = native[0]
+        host = dc.run(dataclasses.replace(
+            ci, bg=native[1],
+            aDP4=info.aDPff + info.aDPfr + info.aDPrf + info.aDPrr), cuda)
+        diff["chain"] = len(dc.differences(host, got_chain))
+        if any(diff.values()):
+            raise AssertionError(f"region {i}: pass C on the card differs "
+                                 f"({diff}: differing entries, the chain's "
+                                 "differing arrays)")
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                dp.readback(dp.launch(*args, cuda))
+        dev_us, copies = {}, {}
+        for e in prof.key_averages():
+            for k in ("pc_scatter", "pc_adp4"):
+                if k in e.key:
+                    dev_us[k] = (e.count, e.device_time_total)
+            for k in ("Memcpy HtoD", "Memcpy DtoH", "Memset"):
+                if k in e.key:
+                    c = copies.setdefault(k, [0, 0.0])
+                    c[0] += e.count
+                    c[1] += e.device_time_total
+        ms = sum(us for _, us in dev_us.values()) / reps / 1e3
+        sizes = run_["sizes"]
+        bound = pass_c_bounds(sizes) / HBM_BYTES_PER_S * 1e3
+        row = dict(region=i, events=sizes["n"], reads=sizes["R"],
+                   P=sizes["P"], differing=diff,
+                   route_wall_ms=sorted(walls)[len(walls) // 2] * 1e3,
+                   plain_ms=plain_s * 1e3, native_ms=native_s * 1e3,
+                   kernel_ms=round(ms, 5),
+                   records={k: v[0] for k, v in dev_us.items()},
+                   bound_ms=bound, share=bound / ms if ms else None,
+                   copies_ms={k: v[1] / reps / 1e3
+                              for k, v in copies.items()},
+                   copy_mb={"HtoD": run_["offs"][dp.SLOT["out"]] / 1e6,
+                            "DtoH": run_["planes"].numel() / 1e6})
+        print(f"phase 17 region {i}: {json.dumps(row)}")
         out.append(row)
     return out
 
@@ -1485,6 +1667,7 @@ def phase_record_diff(d):
     reads them at its end: every card leg must have launched K1-K3 once a
     model request, and nothing else."""
     from uvc_tpu_torch.family.device_chain import CHAIN_LAUNCHES
+    from uvc_tpu_torch.pileup.device_pass_c import PASS_C_LAUNCHES
     from uvc_tpu_torch.utils import record_diff
     res = record_diff.run("cuda", d)
     bodies = res["bodies"]
@@ -1506,7 +1689,9 @@ def phase_record_diff(d):
         if (n < 1 or not res["devices"][leg].startswith("cuda")
                 or any(got[k] != (n if k in MODEL_KERNELS else
                                   CHAIN_LAUNCHES[k] * chains
-                                  if k in CHAIN_LAUNCHES else 0)
+                                  if k in CHAIN_LAUNCHES else
+                                  PASS_C_LAUNCHES[k] * chains
+                                  if k in PASS_C_LAUNCHES else 0)
                        for k in got)):
             errs.append(f"{leg} leg on {res['devices'][leg]}: launches {got} "
                         f"over {n} requests")
@@ -1659,6 +1844,9 @@ def main():
         t0 = time.time()
         chain = phase_family_chain(d)
         print(f"phase 16: done in {time.time() - t0:.1f} s")
+        t0 = time.time()
+        pass_c = phase_pass_c(d)
+        print(f"phase 17: done in {time.time() - t0:.1f} s")
         from uvc_tpu_torch import goldens
         gate_off_body = goldens.read_body(os.path.join(d, "bench.cuda.vcf.gz"))
         t0 = time.time()
@@ -1716,7 +1904,7 @@ def main():
                                        "reads_per_s": tn_reads / tn_wall},
                       "device_prepare": {"wall_s": b1_wall,
                                          "calls": b1_calls, **b1_call},
-                      "family_chain": chain,
+                      "family_chain": chain, "pass_c": pass_c,
                       "b2": b2, "dryrun": dry, "idle_share": idle,
                       "two_process": two, "record_diff": rdiff,
                       "ptxas": ptxas}))

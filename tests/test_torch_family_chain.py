@@ -55,9 +55,9 @@ def capture(monkeypatch, argv, tn=False, route=False):
     got = []
     real = dc.run
 
-    def rec(ci, device):
+    def rec(ci, device, pass_c=None):
         got.append(ci)
-        return real(ci, device) if route else None
+        return real(ci, device, pass_c) if route else None
 
     monkeypatch.setattr(dc, "run", rec)
     monkeypatch.setattr(dc, "ROUTE_TYPES", ("cuda", "cpu"))
@@ -229,14 +229,34 @@ def _families_blocks(body):
             and "prepare.families" in ast.unparse(s.items[0].context_expr)]
 
 
+def _pass_c(body, call):
+    """(the index of the block holding the pass C statement, the index of
+    the statement in it, the statement's call): the statement assigns the
+    result of ``call``."""
+    found = [(i, j, t.value) for i, s in enumerate(body)
+             if isinstance(s, ast.With) for j, t in enumerate(s.body)
+             if isinstance(t, ast.Assign) and isinstance(t.value, ast.Call)
+             and ast.unparse(t.value.func) == call]
+    assert len(found) == 1
+    return found[0]
+
+
+def _without(block, j):
+    """A with block's items and its body but statement ``j``."""
+    return ([_dump(ast.Expr(it.context_expr)) for it in block.items]
+            + [_dump(t) for k, t in enumerate(block.body) if k != j])
+
+
 @pytest.mark.parametrize("part", ["call_region", "host_chain",
                                   "fq_result"])
 def test_host_steps_follow_their_copies(part):
     """The port's region and family steps around the route equal the ones
     tests/test_torch_host.py holds to the JAX package, statement for
-    statement: call_region but for its second families block (the routed
-    one) and its result; _host_chain as that block, the BQ result of the
-    device branch as that block's; fq_result's tail as
+    statement: call_region but for its routed pass C statement (the same
+    arguments, to device_pass_c.route, and its planes taken by
+    device_pass_c.result in the routed block), its second families block
+    (the routed one) and its result; _host_chain as that block, the BQ
+    result of the device branch as that block's; fq_result's tail as
     _run_fq_statics'."""
     if part == "fq_result":
         def tail(fn):
@@ -252,10 +272,20 @@ def test_host_steps_follow_their_copies(part):
     if part == "call_region":
         assert routed_w == routed_g and len(want) == len(got)
         assert isinstance(want[-1], ast.Return)
-        assert [_dump(s) for s in want[:routed_w]] == \
-            [_dump(s) for s in got[:routed_g]]
+        i, j, c_w = _pass_c(want, "engine_bq.pass_c_scatter")
+        assert (i, j) == _pass_c(got, "device_pass_c.route")[:2]
+        c_g = _pass_c(got, "device_pass_c.route")[2]
+        assert i < routed_w and [ast.dump(a) for a in c_w.args] == [
+            ast.dump(a) for a in c_g.args] \
+            and not c_w.keywords and not c_g.keywords
+        assert [_dump(s) for k, s in enumerate(want[:routed_w]) if k != i] \
+            == [_dump(s) for k, s in enumerate(got[:routed_g]) if k != i]
+        assert _without(want[i], j) == _without(got[i], j)
         routed = {_dump(s) for s in ast.walk(got[routed_g])
                   if isinstance(s, ast.stmt)}
+        took = ast.parse("info, bg, a1, a2 = device_pass_c.result(pc)").body
+        assert _dump(took[0]) in routed
+        assert ast.unparse(want[i].body[j].targets[0]) == "(info, bg, a1, a2)"
         bq = [s for s in block if isinstance(s, ast.Assign)
               and {n.id for t in s.targets for n in ast.walk(t)
                    if isinstance(n, ast.Name)} & {"bq_res", "bIAQ"}]

@@ -128,10 +128,13 @@ def test_entry_against_jax_model_core():
         np.testing.assert_array_equal(g, p)
 
 
-def test_dryrun_multidevice_on_four_cpu_slots(capsys):
+def test_dryrun_multidevice_on_four_cpu_slots(capsys, monkeypatch):
     """The dry run over 4 CPU slots at a quarter of its contig length:
     every assertion of the JAX dry run, with the row and record
-    thresholds a quarter as high."""
+    thresholds a quarter as high; it leaves the model hooks as it found
+    them (unset here, whatever CLI run this process made before)."""
+    monkeypatch.setattr(tcalling, "_MODEL_EVAL", None)
+    monkeypatch.setattr(tcalling, "_MODEL_CAST_F32", False)
     counts = dryrun.dryrun_multidevice([CPU] * 4, scale=0.25)
     assert counts["mesh"] == (2, 2) and counts["padded_shards"] >= 1
     assert counts["equality_checks"] == 2

@@ -174,15 +174,15 @@ def _process_region_chunk(idxs, ctx):
     cfg = ctx["cfg"]
     is_normal = ctx["is_normal_run"]
     stage_t = {"prepare": 0.0, "model": 0.0, "emit": 0.0, "columns": 0,
-               "families_device": 0}
+               "families_device": 0, "pass_c_device": 0}
     with profiling.span("chunk", parent=ctx["span"],
                         regions=len(idxs)) as chunk:
         t0 = time.time()
         with profiling.span("prepare"):
             prepared = [_prepare_region(i, ctx) for i in idxs]
         stage_t["prepare"] = time.time() - t0
-        stage_t["families_device"] = sum(r["res"].families_device
-                                         for r in prepared)
+        for k in ("families_device", "pass_c_device"):
+            stage_t[k] = sum(getattr(r["res"], k) for r in prepared)
         t0 = time.time()
         with profiling.span("model"):
             calling.model_stage_batched(prepared, cfg,
@@ -581,7 +581,7 @@ def _run(argv, stats, leg):
     own_regions = windows_done = 0    # this process's stripes (dist_on)
     shard_texts = [] if dist_on else None
     stage_totals = {"prepare": 0.0, "model": 0.0, "emit": 0.0, "columns": 0,
-                    "families_device": 0}
+                    "families_device": 0, "pass_c_device": 0}
     n_workers_est = min(cfg.max_cpu_num, os.cpu_count() or 1) or 1
     pool = None  # lazily-created worker thread pool, shared across windows
 
@@ -757,6 +757,7 @@ def _run(argv, stats, leg):
           f"({backend.rescued_requests} rescued), {backend.rows} rows"
           f"{devprep}; family chain on {device_chain.DEVICE} in "
           f"{stage_totals['families_device']} of {total_regions} regions"
+          f", pass C in {stage_totals['pass_c_device']}"
           f"; kernel launches: {launches}; native host "
           f"libraries: {' '.join(f'{k}={v}' for k, v in native.items())})",
           file=sys.stderr)

@@ -14,8 +14,11 @@ the card between them, one upload a region on the calling worker thread's
 own CUDA stream, and a readback of two copies: the planes with the row
 counts, then the rows (packed in one slot by the kernels).  Both go
 through grow-only pinned buffers of the worker thread; the arrays
-returned are ordinary host memory.  It returns the host's arrays, row
-tables in the host's order:
+returned are ordinary host memory.  Where pass C ran on the card
+(pileup/device_pass_c.py), the chain reads the event columns, bg and aDP4
+where that launch left them (SHARED: not uploaded again), and its first
+readback copy brings pass C's planes back too.  It returns the host's
+arrays, row tables in the host's order:
 
   - pass D: bdp, bta, btb [P,14,2], hist [P,14,16] and vq_bMQ [P,14]
     (int32), the mut rows (frag, pos, st, sym), the win rows
@@ -82,6 +85,8 @@ _N = lambda d: d["n"]                                   # noqa: E731
 SLOTS = (
     ("pos", np.int32, _N), ("sym", np.int8, _N), ("val", np.int32, _N),
     ("read", np.int32, _N),
+    ("bg", np.int64, lambda d: d["P"] * NS),
+    ("adp4", np.int64, lambda d: d["P"] * NS),
     ("stream_off", np.int32, lambda d: d["S"] + 1),
     ("frag_off", np.int32, lambda d: d["F"] + 1),
     ("frag_read", np.int32, lambda d: d["R"]),
@@ -91,8 +96,6 @@ SLOTS = (
     ("fam_frag", np.int32, lambda d: d["F"]),
     ("fam_strand", np.int32, lambda d: d["NF"]),
     ("fam_dflag", np.int32, lambda d: d["NF"]),
-    ("bg", np.int64, lambda d: d["P"] * NS),
-    ("adp4", np.int64, lambda d: d["P"] * NS),
     ("ref", np.int32, lambda d: d["P"]),
     ("sscs", np.int32, lambda d: NS * NS),
     ("pow10", np.float64, lambda d: NPOW10),
@@ -131,6 +134,8 @@ SLOTS = (
 )
 SLOT = {nm: i for i, (nm, _, _) in enumerate(SLOTS)}
 INPUTS = tuple(nm for nm, _, _ in SLOTS[:SLOT["bdp"]])
+# the inputs a launch of pass C (pileup/device_pass_c.py) leaves on the card
+SHARED = INPUTS[:SLOT["stream_off"]]
 PARAMS = ("P", "n", "S", "R", "F", "NF", "highbq", "mut_window",
           "highbq_snv", "pdel_ign", "dup1add", "dup1perc", "dup2add",
           "dup2perc", "flag2", "emperr_snv", "emperc_snv", "emperr_indel",
@@ -195,12 +200,14 @@ class ChainInput:
 
 def chain_input(allev, famgrp, table, info, bg, ref_syms, sscs_table, cfg):
     """The chain's input as pileup/region.py and engine_fq hand it to the
-    native calls."""
+    native calls; ``info`` and ``bg`` None where pass C's planes are still
+    on the card (its launch holds bg and aDP4 there)."""
     from .engine_fq import _pdel_ignored
     normMQ = np.zeros(famgrp.n_frags, dtype=np.int64)
     if famgrp.n_frags:
         np.maximum.at(normMQ, famgrp.frag_of_read, table.reads.mapq)
-    aDP4 = info.aDPff + info.aDPfr + info.aDPrf + info.aDPrr
+    aDP4 = (None if info is None
+            else info.aDPff + info.aDPfr + info.aDPrf + info.aDPrr)
     prm = dict(
         highbq=cfg.bias_thres_highBQ,
         mut_window=cfg.syserr_mut_region_n_bases,
@@ -337,16 +344,19 @@ def stage(ci, out=None):
     the event columns narrowed to int32 (sym to int8), the fragment and
     family maps as CSR (members in id order, as the host's counting sorts
     give them).  ``out`` ({slot: array view}) receives the columns in
-    place (the pinned staging buffer); else they are new arrays.  None
-    where the region does not fit the kernels (too many streams, a map
-    out of range, an event column outside [0, 2^31) that int32 would
-    wrap, no rows)."""
+    place (the pinned staging buffer), and only those it holds (not
+    SHARED where pass C's launch holds them); else they are new arrays,
+    every input.  None where the region does not fit the kernels (too
+    many streams, a map out of range, an event column outside [0, 2^31)
+    that int32 would wrap, no rows)."""
     n, S = len(ci.pos), len(ci.stream_off) - 1
     R, F, NF, P = len(ci.frag_of_read), ci.n_frags, ci.n_fams, ci.P
     if not (0 < n < 2**31 - 1 and 0 < S <= MAX_STREAMS and R > 0 and F > 0
             and NF > 0 and 0 < P < 2**27 and len(ci.fam_of_frag) == F):
         return None
-    if any(np.bitwise_or.reduce(c) >> 31 for c in (ci.pos, ci.val, ci.read)):
+    names = INPUTS if out is None else tuple(out)
+    if any(np.bitwise_or.reduce(getattr(ci, c)) >> 31
+           for c in ("pos", "val", "read") if c in names):
         return None
     fr, ff = ci.frag_of_read, ci.fam_of_frag
     if fr.min() < 0 or fr.max() >= F or ff.min() < 0 or ff.max() >= NF:
@@ -363,13 +373,14 @@ def stage(ci, out=None):
         stream_off=ci.stream_off, frag_off=frag_off, frag_read=frag_read,
         frag_strand=ci.frag_strand, mq2=ci.normMQ * ci.normMQ // 32,
         fam_off=fam_off, fam_frag=fam_frag, fam_strand=ci.fam_strand,
-        fam_dflag=ci.fam_dflag, bg=ci.bg.reshape(-1),
-        adp4=ci.aDP4.reshape(-1), ref=ci.ref_syms, sscs=ci.sscs.reshape(-1),
-        pow10=POW10)
+        fam_dflag=ci.fam_dflag, bg=ci.bg, adp4=ci.aDP4, ref=ci.ref_syms,
+        sscs=ci.sscs.reshape(-1), pow10=POW10)
     staged = {}
     for nm, dt, cnt in SLOTS[:len(INPUTS)]:
+        if nm not in names:
+            continue
         dst = out[nm] if out is not None else np.empty(cnt(sizes), dt)
-        np.copyto(dst, src[nm], casting="unsafe")
+        np.copyto(dst, src[nm].reshape(-1), casting="unsafe")
         staged[nm] = dst
     return sizes, staged
 
@@ -385,16 +396,17 @@ def params(ci, sizes):
     return [int(vals[k]) for k in PARAMS]
 
 
-def run(ci, device):
+def run(ci, device, pass_c=None):
     """The chain of one region on ``device`` (plain versions on a CPU
-    device, the kernels on a card); None where the region must take the
-    host route."""
+    device, the kernels on a card, reading SHARED where ``pass_c``, a
+    launch of pass C on the card, holds them); None where the region must
+    take the host route."""
     if device.type == "cpu":
         st = stage(ci)
         if st is None:
             return None
         return _run_plain(ci, *st)
-    return _run_kernels(ci, device)
+    return _run_kernels(ci, device, pass_c)
 
 
 # ---- the plain versions ----------------------------------------------------
@@ -752,15 +764,17 @@ def layout(sizes):
 
 
 def _worker(device):
-    """This thread's stream and grow-only buffers: the device arena and
-    two pinned host buffers, ``host`` for the upload and ``back`` for the
-    readback."""
+    """This thread's stream and grow-only buffers: the device arenas of
+    the chain (``dev``) and of pass C (``pc_dev``), pinned host buffers
+    for their uploads (``host``, ``pc_host``) and one for the readback
+    (``back``)."""
     w = getattr(_TLS, "w", None)
     if w is None or w["device"] != device:
         w = dict(device=device, stream=torch.cuda.Stream(device),
                  dev=torch.empty(0, dtype=torch.uint8, device=device),
-                 host=torch.empty(0, dtype=torch.uint8, pin_memory=True),
-                 back=torch.empty(0, dtype=torch.uint8, pin_memory=True))
+                 pc_dev=torch.empty(0, dtype=torch.uint8, device=device),
+                 **{k: torch.empty(0, dtype=torch.uint8, pin_memory=True)
+                    for k in ("host", "pc_host", "back")})
         _TLS.w = w
     return w
 
@@ -772,39 +786,49 @@ def _grow(t, nbytes, **kw):
                        dtype=torch.uint8, **kw)
 
 
-def launch(ci, device, sync_each=False):
+def launch(ci, device, sync_each=False, pass_c=None):
     """Stage ``ci`` into the thread's pinned buffer, upload it and launch
     the chain on the thread's stream; returns the launch (a dict: sizes,
-    offsets, the arena, the stream) with the work queued, or None where
-    the region does not fit the kernels.  ``sync_each``: synchronise after
-    each kernel (the card test's mode)."""
+    offsets, the arena, the stream, ``pass_c``) with the work queued, or
+    None where the region does not fit the kernels.  ``pass_c``: a launch
+    of pileup/device_pass_c on this thread's stream, whose ``cols`` give
+    the addresses of SHARED: the chain reads them there and uploads the
+    rest.  ``sync_each``: synchronise after each kernel (the card test's
+    mode)."""
     from ..kernels import build
     n, S = len(ci.pos), len(ci.stream_off) - 1
     sizes = dict(n=n, S=S, R=len(ci.frag_of_read), F=ci.n_frags,
                  NF=ci.n_fams, P=ci.P)
     offs, total = layout(sizes)
     in_bytes = offs[SLOT["bdp"]]
+    first = len(SHARED) if pass_c is not None else 0
+    lo = offs[first]
     w = _worker(device)
     w["host"] = _grow(w["host"], in_bytes, pin_memory=True)
     w["dev"] = _grow(w["dev"], total, device=device)
     host = w["host"].numpy()
     views = {nm: host[offs[i]:offs[i] + cnt(sizes) * np.dtype(dt).itemsize]
-             .view(dt) for i, (nm, dt, cnt) in enumerate(SLOTS[:len(INPUTS)])}
+             .view(dt) for i, (nm, dt, cnt) in enumerate(SLOTS[:len(INPUTS)])
+             if i >= first}
     if stage(ci, out=views) is None:
         return None
     lib = build.load()
     stream, dev = w["stream"], w["dev"]
-    c_offs = (ctypes.c_longlong * len(SLOTS))(*offs)
+    addr = [dev.data_ptr() + o for o in offs]
+    if pass_c is not None:
+        for nm in SHARED:
+            addr[SLOT[nm]] = pass_c["cols"][nm]
+    c_addr = (ctypes.c_longlong * len(SLOTS))(*addr)
     c_prm = (ctypes.c_longlong * len(PARAMS))(*params(ci, sizes))
     with torch.cuda.device(device), torch.cuda.stream(stream):
-        dev[:in_bytes].copy_(w["host"][:in_bytes], non_blocking=True)
-        rc = lib.uvc_fc_chain(dev.data_ptr(), c_offs, c_prm, INV_LOG10,
+        dev[lo:in_bytes].copy_(w["host"][lo:in_bytes], non_blocking=True)
+        rc = lib.uvc_fc_chain(c_addr, c_prm, INV_LOG10,
                               1 if sync_each else 0, stream.cuda_stream)
     kernels.check(lib, "family chain", rc)
     for k, v in CHAIN_LAUNCHES.items():
         kernels.count(k, v)
     return dict(sizes=sizes, offs=offs, dev=dev, stream=stream,
-                device=device)
+                device=device, pass_c=pass_c)
 
 
 def slot(run_, nm, count=None):
@@ -830,20 +854,30 @@ def row_tables(flat, counts):
 
 
 def readback(run_):
-    """The chain's arrays of a launch: one copy of the planes and counts,
-    then one of the rows by their counts, each through the thread's
-    pinned buffer into ordinary host memory; None where a kernel flagged
-    the region."""
-    sizes, offs, dev, stream = (run_[k] for k in ("sizes", "offs", "dev",
-                                                  "stream"))
+    """The chain's arrays of a launch: one copy of the planes and counts
+    (and, beside them, the planes of the pass C launch it read, left in
+    that launch as ``back``), then one of the rows by their counts, each
+    through the thread's pinned buffer into ordinary host memory; None
+    where a kernel flagged the region."""
+    sizes, offs, dev, stream, pc = (run_[k] for k in (
+        "sizes", "offs", "dev", "stream", "pass_c"))
     P = sizes["P"]
     lo, hi = offs[SLOT["bdp"]], offs[SLOT["il"]]
+    m_pc = 0 if pc is None else pc["planes"].numel()
     w = _worker(run_["device"])
     with torch.cuda.device(run_["device"]), torch.cuda.stream(stream):
-        w["back"] = _grow(w["back"], hi - lo, pin_memory=True)
+        w["back"] = _grow(w["back"], hi - lo + m_pc, pin_memory=True)
         w["back"][:hi - lo].copy_(dev[lo:hi], non_blocking=True)
+        if pc is not None:
+            w["back"][hi - lo:hi - lo + m_pc].copy_(pc["planes"],
+                                                   non_blocking=True)
         stream.synchronize()
         b = w["back"][:hi - lo].numpy().copy()
+        if pc is not None:
+            from ..pileup import device_pass_c
+            pc["back"] = w["back"][hi - lo:hi - lo + m_pc].numpy().copy()
+            if device_pass_c.take(pc, pc["back"]) is None:
+                return None     # pass C flagged the region: bg, aDP4 unset
 
         def view(nm, shape=None):
             i = SLOT[nm]
@@ -875,8 +909,8 @@ def readback(run_):
                        good=t["g1"], m2=t["m2"])
 
 
-def _run_kernels(ci, device):
-    run_ = launch(ci, device)
+def _run_kernels(ci, device, pass_c=None):
+    run_ = launch(ci, device, pass_c=pass_c)
     return None if run_ is None else readback(run_)
 
 

@@ -11,7 +11,8 @@ tensor it launches the kernel on the current stream, or raises.
 launch in the rescued mode also counts under ``<kernel>_rescued``.  The
 fragment-consensus kernels (ops/device_consensus.py) and the family
 chain's (family/device_chain.py: frag_merge, fam_merge, sweep2 and their
-chain_scan) count theirs here too.
+chain_scan) and pass C's (pileup/device_pass_c.py: pass_c, its two
+kernels) count theirs here too.
 """
 
 import ctypes
@@ -21,7 +22,8 @@ import torch
 
 LAUNCHES = {"capitals_vq": 0, "dpv": 0, "qual_tail": 0, "dpv_rescued": 0,
             "qual_tail_rescued": 0, "dc_sort": 0, "dc_segments": 0,
-            "frag_merge": 0, "fam_merge": 0, "sweep2": 0, "chain_scan": 0}
+            "frag_merge": 0, "fam_merge": 0, "sweep2": 0, "chain_scan": 0,
+            "pass_c": 0}
 _COUNT_LOCK = threading.Lock()
 
 

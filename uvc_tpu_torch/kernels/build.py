@@ -1,5 +1,5 @@
 """Build and load the kernel library (csrc/*.cu): the three model kernels,
-the fragment-consensus kernels and the family chain's kernels.
+the fragment-consensus kernels, the family chain's kernels and pass C's.
 
 nvcc compiles each source in this checkout to an object, all sources at
 once in parallel processes, and links them into one shared library with
@@ -9,8 +9,8 @@ The library is loaded with ctypes; each regime's instantiation of each
 model kernel is an ``extern "C"`` launcher taking raw pointers, the row
 count, the Layout struct and the CUDA stream, and returning the CUDA
 error code; the consensus launchers take int32 buffers and sizes, the
-family chain's one launcher an arena, its slots' offsets and its
-parameters.  The build log (``BUILD_INFO["ptxas"]``) holds ptxas's
+family chain's one launcher and pass C's the addresses of their arena's
+slots and their parameters.  The build log (``BUILD_INFO["ptxas"]``) holds ptxas's
 registers, spills and stack of every kernel.
 """
 
@@ -105,7 +105,9 @@ def load():
             fn.argtypes = args
         llp = ctypes.POINTER(ll)
         lib.uvc_fc_chain.restype = ci
-        lib.uvc_fc_chain.argtypes = [vp, llp, llp, ctypes.c_double, ci, vp]
+        lib.uvc_fc_chain.argtypes = [llp, llp, ctypes.c_double, ci, vp]
+        lib.uvc_pc_scatter.restype = ci
+        lib.uvc_pc_scatter.argtypes = [llp, llp, ci, vp]
         lib.uvc_fc_nslots.restype = ci
         lib.uvc_fc_nparams.restype = ci
         lib.uvc_error_string.restype = ctypes.c_char_p

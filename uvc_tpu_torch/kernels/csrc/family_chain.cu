@@ -11,8 +11,10 @@
 // rows in the host's order.
 //
 // Memory: one device arena a worker thread; the wrapper lays out the slots
-// below (Slot, in this order) and passes their byte offsets.  Inputs are
-// uploaded in one copy, narrowed to int32 (sym to int8).  Row tables are
+// below (Slot, in this order) and passes their addresses.  Inputs are
+// uploaded in one copy, narrowed to int32 (sym to int8); the first six (the
+// event columns, bg and aDP4) may instead lie where pass C's arena holds
+// them (csrc/pass_c.cu), and are then not uploaded again.  Row tables are
 // columns.  Those that stay on the card (cons, s2) have the stride of
 // their capacity n: column c starts at c * n.  Those read back (mut, win,
 // g1, m2) are packed in one slot (ROWS), in that order, each table's
@@ -86,9 +88,9 @@ constexpr int WARPS = 8;          // warps a block of the warp kernels
 
 // the arena's slots, in the order of family/device_chain.py SLOTS
 enum Slot {
-    S_POS, S_SYM, S_VAL, S_READ, S_STREAM_OFF, S_FRAG_OFF, S_FRAG_READ,
-    S_FRAG_STRAND, S_MQ2, S_FAM_OFF, S_FAM_FRAG, S_FAM_STRAND, S_FAM_DFLAG,
-    S_BG, S_ADP4, S_REF, S_SSCS, S_POW10,
+    S_POS, S_SYM, S_VAL, S_READ, S_BG, S_ADP4, S_STREAM_OFF, S_FRAG_OFF,
+    S_FRAG_READ, S_FRAG_STRAND, S_MQ2, S_FAM_OFF, S_FAM_FRAG, S_FAM_STRAND,
+    S_FAM_DFLAG, S_REF, S_SSCS, S_POW10,
     S_BDP, S_BTA, S_BTB, S_HIST_D, S_VQ_BMQ, S_CDP12, S_CDP21, S_CDP2,
     S_CDP3, S_CDPM_MINOR, S_CDPM_MAJOR, S_CDP1, S_HIST_F, S_FBEG, S_FEND,
     S_COUNTS, S_IL, S_FAM_M2N,
@@ -850,59 +852,58 @@ unsigned grid_for(long long items, int per_block) {
 
 }  // namespace
 
-// The whole chain of one region on ``stream``: the arena at ``base``,
-// its slots at byte offsets offs[N_SLOTS], the parameters prm[N_PARAMS]
-// and 10 / ln 10 as the host computes it.  Inputs must be uploaded; the
+// The whole chain of one region on ``stream``: its slots at addresses
+// addr[N_SLOTS] (bdp .. s2flag one range of the arena, zeroed at once),
+// the parameters prm[N_PARAMS] and 10 / ln 10 as the host computes it.  Inputs must be uploaded; the
 // zeroed slots are zeroed here.  With ``sync_each`` the stream is
 // synchronised after each launch (a fault shows at its kernel; the card
 // test's mode).  Returns the CUDA error code.
-extern "C" int uvc_fc_chain(void* base, const long long* offs,
-                            const long long* prm, double inv_log10,
-                            int sync_each, void* stream) {
+extern "C" int uvc_fc_chain(const long long* addr, const long long* prm,
+                            double inv_log10, int sync_each, void* stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    char* b = static_cast<char*>(base);
+    auto at = [addr](int s) { return reinterpret_cast<char*>(addr[s]); };
     Args a;
-    a.pos = (const int*)(b + offs[S_POS]);
-    a.sym = (const signed char*)(b + offs[S_SYM]);
-    a.val = (const int*)(b + offs[S_VAL]);
-    a.read = (const int*)(b + offs[S_READ]);
-    a.stream_off = (const int*)(b + offs[S_STREAM_OFF]);
-    a.frag_off = (const int*)(b + offs[S_FRAG_OFF]);
-    a.frag_read = (const int*)(b + offs[S_FRAG_READ]);
-    a.frag_strand = (const int*)(b + offs[S_FRAG_STRAND]);
-    a.mq2 = (const int*)(b + offs[S_MQ2]);
-    a.fam_off = (const int*)(b + offs[S_FAM_OFF]);
-    a.fam_frag = (const int*)(b + offs[S_FAM_FRAG]);
-    a.fam_strand = (const int*)(b + offs[S_FAM_STRAND]);
-    a.fam_dflag = (const int*)(b + offs[S_FAM_DFLAG]);
-    a.bg = (const long long*)(b + offs[S_BG]);
-    a.adp4 = (const long long*)(b + offs[S_ADP4]);
-    a.ref = (const int*)(b + offs[S_REF]);
-    a.sscs = (const int*)(b + offs[S_SSCS]);
-    a.pow10 = (const double*)(b + offs[S_POW10]);
-    a.bdp = (int*)(b + offs[S_BDP]);
-    a.bta = (int*)(b + offs[S_BTA]);
-    a.btb = (int*)(b + offs[S_BTB]);
-    a.hist_d = (int*)(b + offs[S_HIST_D]);
-    a.vq_bmq = (int*)(b + offs[S_VQ_BMQ]);
-    for (int c = 0; c < 7; ++c) a.planes[c] = (int*)(b + offs[S_CDP12 + c]);
-    a.hist_f = (int*)(b + offs[S_HIST_F]);
-    a.fbeg = (long long*)(b + offs[S_FBEG]);
-    a.fend = (long long*)(b + offs[S_FEND]);
-    a.counts = (int*)(b + offs[S_COUNTS]);
-    a.il = (int*)(b + offs[S_IL]);
-    a.fam_m2n = (int*)(b + offs[S_FAM_M2N]);
-    a.soff = (int*)(b + offs[S_SOFF]);
-    a.frag_cnt = (int*)(b + offs[S_FRAG_CNT]);
-    a.frag_offs = (int*)(b + offs[S_FRAG_OFFS]);
-    a.cons = (int*)(b + offs[S_CONS]);
-    a.rowmut = (unsigned char*)(b + offs[S_ROWMUT]);
-    a.fam_cnt = (int*)(b + offs[S_FAM_CNT]);
-    a.fam_offs = (int*)(b + offs[S_FAM_OFFS]);
-    a.fam_m2off = (int*)(b + offs[S_FAM_M2OFF]);
-    a.s2 = (int*)(b + offs[S_S2]);
-    a.s2flag = (unsigned char*)(b + offs[S_S2FLAG]);
-    a.rows = (int*)(b + offs[S_ROWS]);
+    a.pos = (const int*)at(S_POS);
+    a.sym = (const signed char*)at(S_SYM);
+    a.val = (const int*)at(S_VAL);
+    a.read = (const int*)at(S_READ);
+    a.stream_off = (const int*)at(S_STREAM_OFF);
+    a.frag_off = (const int*)at(S_FRAG_OFF);
+    a.frag_read = (const int*)at(S_FRAG_READ);
+    a.frag_strand = (const int*)at(S_FRAG_STRAND);
+    a.mq2 = (const int*)at(S_MQ2);
+    a.fam_off = (const int*)at(S_FAM_OFF);
+    a.fam_frag = (const int*)at(S_FAM_FRAG);
+    a.fam_strand = (const int*)at(S_FAM_STRAND);
+    a.fam_dflag = (const int*)at(S_FAM_DFLAG);
+    a.bg = (const long long*)at(S_BG);
+    a.adp4 = (const long long*)at(S_ADP4);
+    a.ref = (const int*)at(S_REF);
+    a.sscs = (const int*)at(S_SSCS);
+    a.pow10 = (const double*)at(S_POW10);
+    a.bdp = (int*)at(S_BDP);
+    a.bta = (int*)at(S_BTA);
+    a.btb = (int*)at(S_BTB);
+    a.hist_d = (int*)at(S_HIST_D);
+    a.vq_bmq = (int*)at(S_VQ_BMQ);
+    for (int c = 0; c < 7; ++c) a.planes[c] = (int*)at(S_CDP12 + c);
+    a.hist_f = (int*)at(S_HIST_F);
+    a.fbeg = (long long*)at(S_FBEG);
+    a.fend = (long long*)at(S_FEND);
+    a.counts = (int*)at(S_COUNTS);
+    a.il = (int*)at(S_IL);
+    a.fam_m2n = (int*)at(S_FAM_M2N);
+    a.soff = (int*)at(S_SOFF);
+    a.frag_cnt = (int*)at(S_FRAG_CNT);
+    a.frag_offs = (int*)at(S_FRAG_OFFS);
+    a.cons = (int*)at(S_CONS);
+    a.rowmut = (unsigned char*)at(S_ROWMUT);
+    a.fam_cnt = (int*)at(S_FAM_CNT);
+    a.fam_offs = (int*)at(S_FAM_OFFS);
+    a.fam_m2off = (int*)at(S_FAM_M2OFF);
+    a.s2 = (int*)at(S_S2);
+    a.s2flag = (unsigned char*)at(S_S2FLAG);
+    a.rows = (int*)at(S_ROWS);
     a.n = prm[P_N];
     a.P = (int)prm[P_P]; a.S = (int)prm[P_S]; a.R = (int)prm[P_R];
     a.F = (int)prm[P_F]; a.NF = (int)prm[P_NF];
@@ -921,8 +922,8 @@ extern "C" int uvc_fc_chain(void* base, const long long* offs,
         || a.NF < 1 || a.P < 1 || a.P >= (1 << 27))
         return (int)cudaErrorInvalidValue;
 
-    cudaError_t e = cudaMemsetAsync(b + offs[S_BDP], 0,
-                                    offs[S_SOFF] - offs[S_BDP], st);
+    cudaError_t e = cudaMemsetAsync(at(S_BDP), 0, addr[S_SOFF] - addr[S_BDP],
+                                    st);
     if (e != cudaSuccess) return (int)e;
     const int T = WARPS * 32;
     const unsigned gF = grid_for(a.F, WARPS), gNF = grid_for(a.NF, WARPS);

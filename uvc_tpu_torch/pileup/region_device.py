@@ -1,20 +1,26 @@
-"""call_region with the family chain on the card.
+"""call_region with pass C and the family chain on the card.
 
-The same steps as pileup/region.py's call_region, with the family chain
-routed.  region.py is a copy of the JAX package's, held to it by
-tests/test_torch_host.py, and is no longer on the port's path: calling.py's
-prepare_region calls this module's call_region.  Where
+The same steps as pileup/region.py's call_region, with pass C and the
+family chain routed.  region.py is a copy of the JAX package's, held to it
+by tests/test_torch_host.py, and is no longer on the port's path:
+calling.py's prepare_region calls this module's call_region.  Where
 family/device_chain.route_device gives a device and no family is
 duplex-flagged, the fragment merge with pass D, the family merge and both
 sweeps run there (family/device_chain.run), and the host runs pass D's
 sparse passes and the family engine's tail (device_chain.fq_result) on
 their arrays.  Elsewhere, or where the device route returns None, the host
 route runs (``_host_chain``: region.py's second ``prepare.families``
-block).  tests/test_torch_family_chain.py holds call_region to region.py's
-but for the routed block and the result, and ``_host_chain`` to that
-block, statement for statement.  Every ``prepare.families`` span carries
-``route`` (``device`` or ``host``), and the result's ``families_device``
-says which route the chain took.
+block).  Pass C takes the same device (pileup/device_pass_c.route), also
+where a family is duplex-flagged; its planes stay on the card for the
+chain, which reads its event columns, bg and aDP4 there, and come back
+with the chain's readback, or with one of their own
+(device_pass_c.result).  tests/test_torch_family_chain.py holds
+call_region to region.py's but for the routed pass C statement, the routed
+block and the result, and ``_host_chain`` to that block, statement for
+statement.  Every ``prepare.families`` span, and the ``prepare.pileup``
+span that holds pass C, carries ``route`` (``device`` or ``host``), and
+the result's ``families_device`` and ``pass_c_device`` say which route the
+chain and pass C took.
 """
 
 from dataclasses import dataclass
@@ -27,13 +33,14 @@ from ..model import sscs
 from ..utils.profiling import span
 from . import bqcorr
 from . import consensus as cns
-from . import engine_bq, events, strscan
+from . import device_pass_c, engine_bq, events, strscan
 from .region import RegionResult, infer_assay
 
 
 @dataclass
 class DeviceRegionResult(RegionResult):
     families_device: bool = False
+    pass_c_device: bool = False
 
 
 def call_region(batch, ref_syms, region_offset, cfg,
@@ -55,7 +62,7 @@ def call_region(batch, ref_syms, region_offset, cfg,
         famgrp = dedup.group_families(batch, table, cfg, cfg.assay_type, platform)
         assay = infer_assay(famgrp, cfg)
 
-    with span("prepare.pileup"):
+    with span("prepare.pileup") as pile_span:
         tracks = strscan.scan_repeats(
             ref_syms, cfg.indel_str_repeatsize_max, cfg.indel_vntr_repeatsize_max,
             cfg.indel_BQ_max, cfg.indel_polymerase_slip_rate,
@@ -80,7 +87,7 @@ def call_region(batch, ref_syms, region_offset, cfg,
             table, batch, ref_syms, tracks, baq, baq2, prep, thres,
             region_offset, P, cfg, dflag,
             is_proton=(platform == SequencingPlatform.IONTORRENT))
-        info, bg, a1, a2 = engine_bq.pass_c_scatter(
+        pc = device_pass_c.route(
             allev, table, baq, baq2, thres, region_offset, P, cfg, dflag)
 
     with span("prepare.families") as chain_span:
@@ -91,9 +98,10 @@ def call_region(batch, ref_syms, region_offset, cfg,
         out = None
         if device is not None:
             sscs_table = sscs.table_from_cfg(cfg)
-            ci = device_chain.chain_input(allev, famgrp, table, info, bg,
-                                          ref_syms, sscs_table, cfg)
-            out = device_chain.run(ci, device)
+            ci = device_chain.chain_input(allev, famgrp, table, pc.info,
+                                          pc.bg, ref_syms, sscs_table, cfg)
+            out = device_chain.run(ci, device, pass_c=pc.run)
+        info, bg, a1, a2 = device_pass_c.result(pc)
         if out is None:
             frag_gc, bq_res, fq_res = _host_chain(
                 allev, gap_info, famgrp, table, info, bg, a1, a2, prep,
@@ -118,11 +126,13 @@ def call_region(batch, ref_syms, region_offset, cfg,
         route = "device" if out is not None else "host"
         chain_span.set(route=route)
         fam_span.set(route=route)
+        pile_span.set(route=pc.route)
     return DeviceRegionResult(bq=bq_res, fq=fq_res, frag_cons=frag_gc,
                               tracks=tracks, baq=baq,
                               baq2=baq2, famgrp=famgrp, ref_syms=ref_syms,
                               region_offset=region_offset, assay_type=assay,
-                              families_device=out is not None)
+                              families_device=out is not None,
+                              pass_c_device=pc.route == "device")
 
 
 def _host_chain(allev, gap_info, famgrp, table, info, bg, a1, a2, prep,
